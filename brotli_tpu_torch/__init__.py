@@ -1,4 +1,4 @@
-"""brotli_tpu_torch: the q2-q9 device compress path in PyTorch + CUDA.
+"""brotli_tpu_torch: brotli_tpu's device compress paths in PyTorch + CUDA.
 
 The port of brotli_tpu's device tier to an NVIDIA H100.  It imports
 torch and numpy, never jax and nothing of brotli_tpu: the host-side
@@ -6,15 +6,20 @@ tables and helpers it needs are its own trimmed copies, and the C++
 runtime in native/ is built by its own bridge (native_bridge.py).
 
   compress_gpu(data, quality=9, lgwin=22, mode=0, span=None,
-               stats=None, device=None) -> bytes
+               stats=None, max_device=False, device=None) -> bytes
+      q2-q9, byte-identical to brotli_tpu's compress_tpu
+  compress_fast(data, lgwin=22, quality=1, device=None) -> bytes
+      q0/q1, byte-identical to brotli_tpu.encode.fast.compress_fast
 
-runs on CUDA unless device="cpu" is passed; without CUDA and without
-device="cpu" it raises.  The match fold is a CUDA C++ kernel
-(csrc/fold.cu, built with nvcc at first use); on CPU tensors its plain
-PyTorch version runs instead.
+Both run on CUDA unless device="cpu" is passed; without CUDA and
+without device="cpu" they raise.  The match fold (csrc/fold.cu) and
+the match-length round chain (csrc/match_rounds.cu) are CUDA C++
+kernels built with nvcc at first use; on CPU tensors their plain
+PyTorch versions run instead.
 """
 
 from .device import resolve_device
+from .encode.fast import compress_fast
 from .encode.gpu_path import compress_gpu
 
-__all__ = ["compress_gpu", "resolve_device"]
+__all__ = ["compress_fast", "compress_gpu", "resolve_device"]

@@ -1,7 +1,8 @@
 """LSB-first bit writer for the RFC 7932 stream (host side).
 
 A trimmed copy of brotli_tpu/core/bitio.py's BitWriter: headers,
-whole-byte stores and the append of natively packed metablocks.
+whole-byte stores, the append of natively packed metablocks, and the
+checkpoint that rolls a metablock back for the uncompressed fallback.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ class BitWriter:
     def __init__(self):
         self.buf = bytearray()
         self.bitpos = 0  # bits already used in the last byte (0..7)
+
+    def bit_length(self) -> int:
+        return len(self.buf) * 8 - ((8 - self.bitpos) & 7)
 
     def write(self, bits: int, nbits: int):
         """Append nbits of `bits`, LSB-first."""
@@ -78,6 +82,18 @@ class BitWriter:
         self.bitpos = (p + total_bits) & 7
         if self.bitpos:
             self.buf[-1] &= (1 << self.bitpos) - 1
+
+    def save_state(self):
+        """Checkpoint for rollback (per-metablock uncompressed fallback)."""
+        return (len(self.buf), self.bitpos,
+                self.buf[-1] if self.buf else 0)
+
+    def restore_state(self, state):
+        nbytes, bitpos, last = state
+        del self.buf[nbytes:]
+        if nbytes:
+            self.buf[-1] = last
+        self.bitpos = bitpos
 
     def getvalue(self) -> bytes:
         return bytes(self.buf)

@@ -1,9 +1,11 @@
-"""RFC 7932 format constants used by the device compress path.
+"""RFC 7932 format constants used by the device compress paths.
 
 A trimmed copy of brotli_tpu/core/constants.py: the distance cache
 seed, the literal context modes and their lookup tables (loaded from
-this package's data/context_lut.npy), the window-bits header code and
-the dictionary word bounds.
+this package's data/context_lut.npy), the window-bits header code, the
+dictionary word bounds, and what the trivial metablock store reads --
+the insert/copy length codes, the command cells that imply distance 0
+and the code-length code tables.
 """
 
 from __future__ import annotations
@@ -19,6 +21,49 @@ LARGE_MAX_WINDOW_BITS = 30
 MIN_DICTIONARY_WORD_LENGTH = 4
 MAX_DICTIONARY_WORD_LENGTH = 24
 NUM_TRANSFORMS = 121
+
+MAX_HUFF_BITS = 15  # max depth of any prefix code in the format
+
+# Insert / copy length codes (RFC 7932 section 5)
+INSERT_EXTRA = np.array(
+    [0, 0, 0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5,
+     6, 7, 8, 9, 10, 12, 14, 24], dtype=np.int64)
+INSERT_BASE = np.zeros(24, dtype=np.int64)
+INSERT_BASE[1:] = np.cumsum(1 << INSERT_EXTRA)[:-1]
+
+COPY_EXTRA = np.array(
+    [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4,
+     5, 5, 6, 7, 8, 9, 10, 24], dtype=np.int64)
+COPY_BASE = np.full(24, 2, dtype=np.int64)
+COPY_BASE[1:] += np.cumsum(1 << COPY_EXTRA)[:-1]
+
+
+def get_insert_length_code(insert_len):
+    """Vectorized insert-length -> code (0..23)."""
+    il = np.asarray(insert_len, dtype=np.int64)
+    return (np.searchsorted(INSERT_BASE, il, side="right") - 1).astype(
+        np.int64)
+
+
+def get_copy_length_code(copy_len):
+    cl = np.asarray(copy_len, dtype=np.int64)
+    return (np.searchsorted(COPY_BASE, cl, side="right") - 1).astype(
+        np.int64)
+
+
+# The 704 command symbols are 11 cells of 64; cells 0 and 1 imply
+# distance code 0 and carry no distance symbol (RFC 7932 section 5).
+CMD_IMPLICIT_DIST0 = np.zeros(704, dtype=bool)
+CMD_IMPLICIT_DIST0[:128] = True
+
+# Code-length code (RFC 7932 section 3.5): the order its lengths are
+# sent in, and the fixed code of those lengths (LSB-first bits, nbits)
+CODE_LENGTH_CODE_ORDER = np.array(
+    [1, 2, 3, 4, 0, 5, 17, 6, 16, 7, 8, 9, 10, 11, 12, 13, 14, 15],
+    dtype=np.int64)
+CLCODE_BITS = np.array([0b00, 0b0111, 0b011, 0b10, 0b01, 0b1111, 0, 0],
+                       dtype=np.int64)
+CLCODE_NBITS = np.array([2, 4, 3, 2, 2, 4, 0, 0], dtype=np.int64)
 
 # Most-recent-first: "last distance" starts as 4 (RFC 7932 section 4).
 INITIAL_DISTANCE_CACHE = (4, 11, 15, 16)

@@ -41,7 +41,7 @@ namespace {
 
 constexpr int kDistanceBitPenalty = 30;
 constexpr int kMinScoreDelta = 100;
-constexpr int kMaxPay = 3;
+constexpr int kMaxPay = 5;
 
 struct Payloads {
     const uint32_t* p[kMaxPay];
@@ -158,6 +158,8 @@ bool launch_pay(int n_pay, const uint32_t* key0, const uint32_t* key1,
         FOLD_CASE(1)
         FOLD_CASE(2)
         FOLD_CASE(3)
+        FOLD_CASE(4)
+        FOLD_CASE(5)
 #undef FOLD_CASE
         default:
             return false;
@@ -167,21 +169,22 @@ bool launch_pay(int n_pay, const uint32_t* key0, const uint32_t* key1,
 }  // namespace
 
 // Launches the fold on `stream` (a cudaStream_t).  Operands are int32
-// device arrays of length n; key and payload words are read as uint32.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for a shape the kernel does not take.
+// device arrays of length n; key and payload words are read as uint32;
+// `pays_in` is a host array of the n_pay payload pointers.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// shape the kernel does not take.
 extern "C" int fold_sorted_launch(
-    const void* key0, const void* key1, const void* pos, const void* pay0,
-    const void* pay1, const void* pay2, void* out_packed, void* out_score,
-    int n, int n_real, int n_keys, int n_pay, int fuse_short, int k_fwd,
-    int k_back, int window, int lbs, int len_shift, int min_pos,
+    const void* key0, const void* key1, const void* pos,
+    const void* const* pays_in, int n_pay, void* out_packed,
+    void* out_score, int n, int n_real, int n_keys, int fuse_short,
+    int k_fwd, int k_back, int window, int lbs, int len_shift, int min_pos,
     void* stream) {
     if (n <= 0 || k_fwd < 0 || k_back < 0 || n_pay < 0 ||
         n_pay > kMaxPay || (n_keys != 1 && n_keys != 2))
         return static_cast<int>(cudaErrorInvalidValue);
-    Payloads pays{{static_cast<const uint32_t*>(pay0),
-                   static_cast<const uint32_t*>(pay1),
-                   static_cast<const uint32_t*>(pay2)}};
+    Payloads pays{};
+    for (int r = 0; r < n_pay; ++r)
+        pays.p[r] = static_cast<const uint32_t*>(pays_in[r]);
     auto k0 = static_cast<const uint32_t*>(key0);
     auto k1 = static_cast<const uint32_t*>(key1);
     auto ps = static_cast<const int32_t*>(pos);

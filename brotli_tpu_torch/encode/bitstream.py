@@ -1,14 +1,23 @@
-"""Stream and metablock headers written on the host.
+"""Metablock serialization on the host.
 
 A trimmed copy of brotli_tpu/encode/bitstream.py: the window header,
-MLEN, the empty last metablock and the uncompressed metablock (the
-store for spans whose compressed form would be larger).
+MLEN, the empty last metablock, the uncompressed metablock (the store
+for spans whose compressed form would be larger), and the trivial
+metablock of the q0/q1 path -- one prefix code per category, its
+symbol stream built as (bits, nbits) item arrays in stream order and
+packed by the native runtime.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
+from .. import native_bridge as nb
 from ..core import constants as C
 from ..core.bitio import BitWriter
+from ..core.huffman import build_huffman_lengths
+from ..core.prefix import encoding_table, write_prefix_code
+from .command import CommandArrays, command_extra_bits
 
 
 def write_stream_header(writer: BitWriter, lgwin: int,
@@ -42,3 +51,118 @@ def store_uncompressed_meta_block(writer: BitWriter, data: bytes):
     writer.write(1, 1)   # ISUNCOMPRESSED
     writer.align_to_byte()
     writer.write_bytes(bytes(data))
+
+
+def extract_literals(data: np.ndarray, start: int, insert_len,
+                     advance) -> np.ndarray:
+    """The literal bytes of a command stream that starts at data[start]
+    (each command covers insert_len + advance bytes), vectorized."""
+    ins = np.asarray(insert_len, np.int64)
+    adv = np.asarray(advance, np.int64)
+    total = int(ins.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.uint8)
+    cmd_start = np.zeros(len(ins), dtype=np.int64)
+    np.cumsum((ins + adv)[:-1], out=cmd_start[1:])
+    # owning command of each literal + offset within its run
+    owner = np.repeat(np.arange(len(ins)), ins)
+    run_off = np.arange(total) - np.repeat(
+        np.concatenate([[0], np.cumsum(ins)[:-1]]), ins)
+    return np.asarray(data)[start + cmd_start[owner] + run_off]
+
+
+def _safe_hist(hist: np.ndarray) -> np.ndarray:
+    if hist.sum() == 0:
+        hist = hist.copy()
+        hist[0] = 1
+    return hist
+
+
+def store_meta_block_trivial(writer: BitWriter, data: np.ndarray,
+                             start: int, mlen: int, is_last: bool,
+                             cmds: CommandArrays, dist_params):
+    """Serialize one compressed metablock with one prefix code per
+    category (reference store_meta_block_trivial,
+    brotli_bit_stream.rs:2349)."""
+    literals = extract_literals(data, start, cmds.insert_len,
+                                cmds.copy_advance)
+    dist_mask = (cmds.copy_len > 0) & ~C.CMD_IMPLICIT_DIST0[cmds.cmd_sym]
+    dist_syms = cmds.dist_code[dist_mask]
+
+    lit_hist = _safe_hist(np.bincount(literals, minlength=256))
+    cmd_hist = _safe_hist(np.bincount(cmds.cmd_sym, minlength=704))
+    dist_hist = _safe_hist(np.bincount(
+        dist_syms, minlength=dist_params.alphabet_size))
+
+    lit_lengths = build_huffman_lengths(lit_hist)
+    cmd_lengths = build_huffman_lengths(cmd_hist)
+    dist_lengths = build_huffman_lengths(dist_hist)
+
+    writer.write(1 if is_last else 0, 1)
+    if is_last:
+        writer.write(0, 1)  # ISLASTEMPTY = 0
+    write_mlen(writer, mlen)
+    if not is_last:
+        writer.write(0, 1)  # ISUNCOMPRESSED = 0
+    for _ in range(3):      # NBLTYPES L/I/D = 1
+        writer.write(0, 1)
+    writer.write(dist_params.npostfix, 2)
+    writer.write(dist_params.ndirect >> dist_params.npostfix, 4)
+    writer.write(0, 2)      # context mode of the one literal block type
+    writer.write(0, 1)      # NTREESL = 1
+    writer.write(0, 1)      # NTREESD = 1
+    write_prefix_code(writer, lit_lengths)
+    write_prefix_code(writer, cmd_lengths)
+    write_prefix_code(writer, dist_lengths)
+    emit_command_stream(writer, cmds, literals, lit_lengths, cmd_lengths,
+                        dist_lengths)
+
+
+def emit_command_stream(writer: BitWriter, cmds: CommandArrays,
+                        literals: np.ndarray, lit_lengths, cmd_lengths,
+                        dist_lengths):
+    """Emit the interleaved symbol stream of a one-code-per-category
+    metablock, vectorized: per command its symbol, insert/copy extra
+    bits, literals, then distance symbol + extra bits unless the
+    command implies distance 0."""
+    n = len(cmds)
+    ins_val, ins_nb, copy_val, copy_nb = command_extra_bits(cmds)
+    dist_mask = (cmds.copy_len > 0) & ~C.CMD_IMPLICIT_DIST0[cmds.cmd_sym]
+
+    items_per_cmd = 3 + cmds.insert_len + 2 * dist_mask
+    offs = np.zeros(n, dtype=np.int64)
+    np.cumsum(items_per_cmd[:-1], out=offs[1:])
+    total_items = int(items_per_cmd.sum())
+    bits = np.zeros(total_items, dtype=np.uint64)
+    nbits = np.zeros(total_items, dtype=np.int64)
+
+    cmd_code_b, cmd_code_n = encoding_table(cmd_lengths)
+    bits[offs] = cmd_code_b[cmds.cmd_sym].astype(np.uint64)
+    nbits[offs] = cmd_code_n[cmds.cmd_sym]
+    bits[offs + 1] = ins_val.astype(np.uint64)
+    nbits[offs + 1] = ins_nb
+    bits[offs + 2] = copy_val.astype(np.uint64)
+    nbits[offs + 2] = copy_nb
+
+    n_lit = len(literals)
+    if n_lit:
+        owner = np.repeat(np.arange(n), cmds.insert_len)
+        run_off = np.arange(n_lit) - np.repeat(
+            np.concatenate([[0], np.cumsum(cmds.insert_len)[:-1]]),
+            cmds.insert_len)
+        lit_pos = offs[owner] + 3 + run_off
+        lit_code_b, lit_code_n = encoding_table(lit_lengths)
+        bits[lit_pos] = lit_code_b[literals].astype(np.uint64)
+        nbits[lit_pos] = lit_code_n[literals]
+
+    d_idx = np.nonzero(dist_mask)[0]
+    if len(d_idx):
+        d_pos = offs[d_idx] + 3 + cmds.insert_len[d_idx]
+        d_syms = cmds.dist_code[d_idx]
+        dist_code_b, dist_code_n = encoding_table(dist_lengths)
+        bits[d_pos] = dist_code_b[d_syms].astype(np.uint64)
+        nbits[d_pos] = dist_code_n[d_syms]
+        bits[d_pos + 1] = cmds.dist_extra[d_idx].astype(np.uint64)
+        nbits[d_pos + 1] = cmds.dist_extra_bits[d_idx]
+
+    writer.append_packed(*nb.pack_bits(bits, nbits))

@@ -11,6 +11,13 @@ candidates, runs the native greedy walk, plans the literal block split
 on the device (ops/split.py) and stores through the native metablock
 serializer.
 
+max_device=True also commits the parse on the device
+(`_match_parse_dense`: the fold with 6 attested rounds, then
+ops/parse.committed_parse's pointer doubling over 4096-byte
+sub-blocks); the host only assembles commands and stores them, at a
+ratio cost (copies cap at 24 bytes, parses cut at sub-block seams, no
+static dictionary).
+
 Pipelining: up to three dispatches are in flight on one CUDA stream.
 A dispatch copies its row from pinned memory, runs the matcher and
 copies the results back into pinned buffers, all non-blocking, and
@@ -32,6 +39,8 @@ from ..core.bitio import BitWriter
 from ..device import resolve_device
 from ..ops.fold_cuda import (best_matches_exact8_p, best_matches_exact9_p,
                              best_matches_exact_p)
+from ..ops.matching import floor_log2
+from ..ops.parse import committed_parse
 from ..ops.split import split_symbols_device
 from . import bitstream as bs
 from .match import greedy_parse
@@ -112,21 +121,92 @@ def _device_knobs(quality: int):
     return dict(k=16, k8=16, rounds=4, variant="exact9")
 
 
-def _extract_literals(region, dlen, ins, adv):
-    """Literal byte stream of a parsed segment (vectorized insert-run
-    gather through the command list)."""
-    ins = np.asarray(ins, np.int64)
-    adv = np.asarray(adv, np.int64)
-    total = int(ins.sum())
-    if total == 0:
-        return np.zeros(0, np.uint8)
-    step = ins + adv
-    cmd_start = np.zeros(len(ins), np.int64)
-    np.cumsum(step[:-1], out=cmd_start[1:])
-    owner = np.repeat(np.arange(len(ins)), ins)
-    run_off = np.arange(total) - np.repeat(
-        np.concatenate([[0], np.cumsum(ins)[:-1]]), ins)
-    return np.asarray(region)[dlen + cmd_start[owner] + run_off]
+def _match_parse_dense(row: torch.Tensor, min_pos: int, window_size: int,
+                       halo: int, k: int, rounds: int):
+    """max_device matcher: the fold, inverted on the device, then the
+    greedy parse committed on the device over 4096-byte sub-blocks.
+    Returns (visited, take, dist) for the row's [halo:] span."""
+    packed = best_matches_exact_p(row, window_size, k=k, rounds=rounds,
+                                  min_pos=min_pos,
+                                  len_shift=LEN_SHIFT)[halo:]
+    bl = packed >> LEN_SHIFT
+    bd = packed & ((1 << LEN_SHIFT) - 1)
+    logd = floor_log2(torch.clamp(bd, min=1))
+    score = torch.where(bl > 0, 135 * bl - 30 * logd, 0)
+    visited, take = committed_parse(bl, score, 4096)
+    return visited, take, bd
+
+
+def _commands_from_parse(visited, take, dist, real):
+    """(ins, cps, dst, adv) of a device commitment, vectorized."""
+    vis = np.nonzero(visited[:real])[0]
+    tk = take[vis]
+    cp = tk >= 2
+    cp_pos = vis[cp].astype(np.int64)
+    cp_len = tk[cp].astype(np.int64)
+    cp_dist = dist[cp_pos].astype(np.int64)
+    prev_end = np.concatenate([[0], cp_pos + cp_len])
+    ins = cp_pos - prev_end[:-1]
+    tail = real - (prev_end[-1] if len(cp_pos) else 0)
+    if tail > 0:
+        ins = np.concatenate([ins, [tail]])
+        cp_len = np.concatenate([cp_len, [0]])
+        cp_dist = np.concatenate([cp_dist, [1]])
+    return ins, cp_len, cp_dist, cp_len.copy()
+
+
+def _host_parse(sorted_out, row, halo, real, dlen, region, knobs,
+                window_size, cache):
+    """The host leg of one span's matches: invert (or merge) the
+    device's sorted-space outputs, extend length-capped matches, add
+    static-dictionary candidates and run the greedy walk.  Returns the
+    walk's segments."""
+    if len(sorted_out) == 1:   # device_invert: position space
+        packed = sorted_out[0][:real].astype(np.int64)
+    else:
+        if len(sorted_out) == 6:  # exact9: two folds, host merge
+            packed = nb.invert_merge32(*sorted_out)
+        else:
+            packed = nb.invert_perm32(*sorted_out)
+        packed = packed[halo:halo + real].astype(np.int64)
+    bl = packed >> LEN_SHIFT
+    bd = packed & ((1 << LEN_SHIFT) - 1)
+    # exact extension of length-capped matches (every reported length
+    # is byte-attested by the kernel's chunk-value payloads, so
+    # extension resumes at the cap)
+    capped = bl >= 4 * knobs["rounds"]
+    if knobs["variant"] == "exact9":
+        # the short fold caps its lengths at 8: a winning 8-capped
+        # short match may be longer, so len == 8 is a candidate too
+        # (extending a genuine 8 is a no-op byte compare)
+        capped |= bl == 8
+    if capped.any():
+        pos_c = np.nonzero(capped)[0]
+        bl[pos_c] = nb.extend_caps(row[:halo + real], 0, pos_c + halo,
+                                   bd[pos_c], bl[pos_c])
+    with np.errstate(divide="ignore"):
+        bsc = np.where(
+            bl > 0,
+            135 * bl - 30 * np.floor(
+                np.log2(np.maximum(bd, 2))).astype(np.int64),
+            0)
+    # union static-dictionary candidates (the device searches the
+    # window only)
+    fl = np.zeros(dlen + real, np.int64)
+    fd = np.zeros(dlen + real, np.int64)
+    fs = np.zeros(dlen + real, np.int64)
+    fi = np.zeros(dlen + real, bool)
+    fw = np.zeros(dlen + real, np.int64)
+    fl[dlen:] = bl
+    fd[dlen:] = bd
+    fs[dlen:] = bsc
+    fw[dlen:] = bl
+    add_dictionary_matches(region, dlen, window_size, 135, fl, fd, fs, fi,
+                           fw)
+    return greedy_parse(region, fl[dlen:], fd[dlen:], fs[dlen:], [real],
+                        dict_len=dlen, pos0=0, initial_cache=tuple(cache),
+                        best_isdict=fi[dlen:], window_size=window_size,
+                        best_wire=fw[dlen:])
 
 
 class _Pipeline:
@@ -183,9 +263,12 @@ class _Pipeline:
 
 def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                  span: int | None = None, stats: dict | None = None,
-                 device=None) -> bytes:
+                 max_device: bool = False, device=None) -> bytes:
     """One-shot device-path compress for q2-q9, byte-identical to
     brotli_tpu's compress_tpu at the same settings.
+
+    max_device: commit the greedy parse on the device too (see the
+    module docstring); span must then be a multiple of 4096.
 
     device: None = CUDA (raises when there is none); "cpu" runs the
     same path with the fold's plain PyTorch version.
@@ -225,11 +308,18 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
             rows[j, halo - fill:halo] = raw[ctx_lo:s0]
         min_pos[j] = halo - fill
 
-    device_invert = _pick_device_invert(dev)
+    if max_device:
+        def run(j, row_d):
+            return _match_parse_dense(row_d, int(min_pos[j]),
+                                      params.window_size, halo,
+                                      k=knobs["k"],
+                                      rounds=max(knobs["rounds"], 6))
+    else:
+        device_invert = _pick_device_invert(dev)
 
-    def run(j, row_d):
-        return _match_dense(row_d, int(min_pos[j]), params.window_size,
-                            halo, device_invert=device_invert, **knobs)
+        def run(j, row_d):
+            return _match_dense(row_d, int(min_pos[j]), params.window_size,
+                                halo, device_invert=device_invert, **knobs)
 
     pipe = _Pipeline(rows, dev, run)
     for j in range(min(_MAX_INFLIGHT, len(starts))):
@@ -241,43 +331,14 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
     for j, s0 in enumerate(starts):
         t0 = time.perf_counter()
         # device results arrive in content-sorted space (pos_s,
-        # packed_s[, score_s] per fold) unless inverted on the device
+        # packed_s[, score_s] per fold) unless inverted on the device;
+        # max_device: (visited, take, dist) of the span
         sorted_out = pipe.wait(j)
         device_wait += time.perf_counter() - t0
         if j + _MAX_INFLIGHT < len(starts):
             pipe.dispatch(j + _MAX_INFLIGHT)
         real = min(span, n - s0)
-        if len(sorted_out) == 1:   # device_invert: position space
-            packed = sorted_out[0][:real].astype(np.int64)
-        else:
-            if len(sorted_out) == 6:  # exact9: two folds, host merge
-                packed = nb.invert_merge32(*sorted_out)
-            else:
-                packed = nb.invert_perm32(*sorted_out)
-            packed = packed[halo:halo + real].astype(np.int64)
-        bl = packed >> LEN_SHIFT
-        bd = packed & ((1 << LEN_SHIFT) - 1)
         row = rows[j]
-        # exact extension of length-capped matches (every reported
-        # length is byte-attested by the kernel's chunk-value payloads,
-        # so extension resumes at the cap)
-        capped = bl >= 4 * knobs["rounds"]
-        if knobs["variant"] == "exact9":
-            # the short fold caps its lengths at 8: a winning 8-capped
-            # short match may be longer, so len == 8 is a candidate too
-            # (extending a genuine 8 is a no-op byte compare)
-            capped |= bl == 8
-        if capped.any():
-            pos_c = np.nonzero(capped)[0]
-            bl[pos_c] = nb.extend_caps(row[:halo + real], 0,
-                                       pos_c + halo, bd[pos_c],
-                                       bl[pos_c])
-        with np.errstate(divide="ignore"):
-            bsc = np.where(
-                bl > 0,
-                135 * bl - 30 * np.floor(
-                    np.log2(np.maximum(bd, 2))).astype(np.int64),
-                0)
         # drop the zero-filled part of the halo: with dlen = halo -
         # min_pos (== min(s0, halo)) every row-local position maps to
         # its absolute stream position, so the walk's distance limits
@@ -285,25 +346,11 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
         mp0 = int(min_pos[j])
         dlen = halo - mp0
         region = row[mp0:halo + real]
-        # union static-dictionary candidates (the device searches the
-        # window only)
-        fl = np.zeros(dlen + real, np.int64)
-        fd = np.zeros(dlen + real, np.int64)
-        fs = np.zeros(dlen + real, np.int64)
-        fi = np.zeros(dlen + real, bool)
-        fw = np.zeros(dlen + real, np.int64)
-        fl[dlen:] = bl
-        fd[dlen:] = bd
-        fs[dlen:] = bsc
-        fw[dlen:] = bl
-        add_dictionary_matches(region, dlen, params.window_size,
-                               135, fl, fd, fs, fi, fw)
-        segs = greedy_parse(region, fl[dlen:], fd[dlen:], fs[dlen:],
-                            [real], dict_len=dlen, pos0=0,
-                            initial_cache=tuple(cache),
-                            best_isdict=fi[dlen:],
-                            window_size=params.window_size,
-                            best_wire=fw[dlen:])
+        if max_device:
+            segs = [_commands_from_parse(*sorted_out, real)]
+        else:
+            segs = _host_parse(sorted_out, row, halo, real, dlen, region,
+                               knobs, params.window_size, cache)
         ins, cps, dst, adv = segs[0]
         is_last = j == len(starts) - 1
         ctx_mode = choose_context_mode(row[halo:halo + real],
@@ -315,7 +362,7 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
             nlc, smap = 1, np.zeros(64, dtype=np.int64)
         # literal block split planned on the device; a failure raises
         ext_split = None
-        lit_stream = _extract_literals(region, dlen, ins, adv)
+        lit_stream = bs.extract_literals(region, dlen, ins, adv)
         if len(lit_stream) >= 128:
             sp = split_symbols_device(lit_stream.astype(np.int64), 256,
                                       "literal", dev)

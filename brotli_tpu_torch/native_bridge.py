@@ -9,7 +9,8 @@ there is no pure-Python fallback on this path.
 
 Bound here: greedy_parse, extend_caps, encode_metablock,
 invert_perm32 / invert_merge32 (the host inversion of the device's
-sorted-space fold outputs) and decode (used to check round trips).
+sorted-space fold outputs), resolve_distance_codes and pack_bits (the
+q0/q1 trivial metablock store) and decode (used to check round trips).
 """
 
 from __future__ import annotations
@@ -136,6 +137,12 @@ def _bind(lib) -> None:
     lib.invert_perm32_native.argtypes = [I32P, I32P, I64, I32P]
     lib.invert_merge32_native.restype = None
     lib.invert_merge32_native.argtypes = [I32P] * 6 + [I64, I32P, I32P]
+    lib.resolve_commands_native.restype = None
+    lib.resolve_commands_native.argtypes = [
+        I64P, I64P, I64P, I64P, I64, I64, I64, I64P, I64, I64,
+        I64P, I64P, I64P, U8P, I64P]
+    lib.pack_bits_native.restype = I64
+    lib.pack_bits_native.argtypes = [U64P, I64P, I64, U64P]
     lib.decode_native.restype = I64
     lib.decode_native.argtypes = [U8P, I64, U8P, I64, U8P, I64, I64,
                                   I32P, I64]
@@ -311,6 +318,53 @@ def encode_metablock(data, start, mlen, is_last, ins, wire, dist, adv,
     if r < 0:
         return None
     return words, int(r), cache_io.tolist()
+
+
+def resolve_distance_codes(insert_len, copy_len, distance, npostfix,
+                           ndirect, initial_cache, pos_offset,
+                           window_size, wire_copy=None):
+    """Native distance-code + command-symbol resolution; returns
+    (code, extra, extra_bits, use_last, cmd_sym, final_cache).
+    copy_len is the ADVANCE (position-stepping) length; wire_copy the
+    wire copy length (defaults to copy_len)."""
+    lib = get_lib()
+    il = np.ascontiguousarray(insert_len, dtype=np.int64)
+    cl = np.ascontiguousarray(copy_len, dtype=np.int64)
+    dl = np.ascontiguousarray(distance, dtype=np.int64)
+    wc = cl if wire_copy is None else np.ascontiguousarray(
+        wire_copy, dtype=np.int64)
+    n = len(il)
+    if any(len(a) != n for a in (cl, dl, wc)):
+        raise ValueError("resolve_distance_codes: arrays differ in length")
+    cache = np.asarray(initial_cache, dtype=np.int64).copy()
+    out_code = np.empty(n, dtype=np.int64)
+    out_extra = np.empty(n, dtype=np.int64)
+    out_bits = np.empty(n, dtype=np.int64)
+    out_ul = np.empty(n, dtype=np.uint8)
+    out_sym = np.empty(n, dtype=np.int64)
+    lib.resolve_commands_native(
+        _ptr(il), _ptr(cl), _ptr(dl), _ptr(wc), n, npostfix, ndirect,
+        _ptr(cache), pos_offset, window_size, _ptr(out_code),
+        _ptr(out_extra), _ptr(out_bits), _ptr(out_ul, U8P), _ptr(out_sym))
+    return out_code, out_extra, out_bits, out_ul.astype(bool), \
+        out_sym, cache.tolist()
+
+
+def pack_bits(bits, nbits):
+    """Pack (bits[i], nbits[i]) items LSB-first into uint64 words;
+    returns (words, total_bits).  Each item fits 32 bits."""
+    lib = get_lib()
+    bits = np.ascontiguousarray(bits, dtype=np.uint64)
+    nbits = np.ascontiguousarray(nbits, dtype=np.int64)
+    if len(bits) != len(nbits):
+        raise ValueError("pack_bits: arrays differ in length")
+    total = int(nbits.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.uint64), 0
+    words = np.zeros(total // 64 + 2, dtype=np.uint64)
+    lib.pack_bits_native(_ptr(bits, U64P), _ptr(nbits), len(bits),
+                         _ptr(words, U64P))
+    return words, total
 
 
 def invert_perm32(pos_s, val_s):

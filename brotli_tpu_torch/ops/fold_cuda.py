@@ -18,76 +18,34 @@ fold sort by signed int32(v0), the exact8 fold by unsigned (v0, v1).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
-from ..buildcache import build_once
+from ..buildcache import CudaLibrary
 from .matching import (DISTANCE_BIT_PENALTY, MIN_SCORE_DELTA, as_i32,
-                       u32_values, u32_values_at)
+                       ctz_bytes, floor_log2, u32_values, u32_values_at)
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "fold.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+MAX_PAY = 5  # payload operands the kernel takes (csrc/fold.cu kMaxPay)
 
 #: kernel launches per configuration name (config_name(...)); reset
 #: and read by callers that check a run went through the kernel
 LAUNCHES: dict[str, int] = {}
 
-_lock = threading.Lock()
-_lib = None
+
+def _bind(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.fold_sorted_launch.argtypes = ([vp] * 4 + [ci] + [vp] * 2
+                                       + [ci] * 10 + [vp])
+    lib.fold_sorted_launch.restype = ci
+
+
+LIB = CudaLibrary("fold", _bind)
 
 
 def config_name(n_keys: int, n_pay: int, k_fwd: int, k_back: int,
                 fuse_short: bool = False) -> str:
     return (f"fold_k{n_keys}p{n_pay}_f{k_fwd}b{k_back}"
             + ("_short" if fuse_short else ""))
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("brotli_tpu_torch: nvcc not found; the fold "
-                           "kernel cannot be built")
-    return path
-
-
-def _compile(out: str, work: str) -> str:
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, _SRC, "-o", out],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError("brotli_tpu_torch: nvcc failed on fold.cu\n"
-                           + r.stdout[-4000:] + r.stderr[-4000:])
-    return r.stdout + r.stderr
-
-
-def build() -> tuple[str, str]:
-    """Compile csrc/fold.cu for sm_90a into the build directory unless
-    the library for this source and these flags is there.  Returns the
-    library's path and the compiler's log (ptxas register and spill
-    report; empty when the library was already built)."""
-    h = hashlib.sha256()
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_once(f"libfold_{h.hexdigest()[:16]}.so", _compile)
-
-
-def _get_lib():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build()[0])
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.fold_sorted_launch.argtypes = [vp] * 8 + [ci] * 11 + [vp]
-            lib.fold_sorted_launch.restype = ci
-            _lib = lib
-    return _lib
 
 
 # ---------------------------------------------------------------------------
@@ -116,42 +74,28 @@ def fold_sorted(ops_sorted, min_pos: int, n_keys: int, k_fwd: int,
                                window, lbs, len_shift, n_real, fuse_short)
     if dev.type != "cuda":
         raise ValueError(f"fold_sorted: unsupported device {dev}")
-    if not 1 <= n_keys <= 2 or not 0 <= n_pay <= 3 or n == 0:
+    if not 1 <= n_keys <= 2 or not 0 <= n_pay <= MAX_PAY or n == 0:
         raise ValueError(f"fold_sorted: no kernel for {n_keys} keys, "
                          f"{n_pay} payloads, {n} rows")
-    lib = _get_lib()
+    lib = LIB.get()
     ops = [x.contiguous() for x in ops]
     packed = torch.empty(n, dtype=torch.int32, device=dev)
     score = torch.empty(n, dtype=torch.int32, device=dev)
-    keys = ops[:n_keys] + [None] * (2 - n_keys)
-    pays = ops[n_keys + 1:] + [None] * (3 - n_pay)
-    ptr = [None if x is None else x.data_ptr() for x in keys + pays]
+    key1 = ops[1].data_ptr() if n_keys == 2 else None
+    pays = (ctypes.c_void_p * MAX_PAY)(
+        *[x.data_ptr() for x in ops[n_keys + 1:]])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fold_sorted_launch(
-            ptr[0], ptr[1], ops[n_keys].data_ptr(), ptr[2], ptr[3],
-            ptr[4], packed.data_ptr(), score.data_ptr(), n, int(n_real),
-            n_keys, n_pay, int(fuse_short), k_fwd, k_back, int(window),
-            int(lbs), int(len_shift), int(min_pos), stream)
+            ops[0].data_ptr(), key1, ops[n_keys].data_ptr(), pays, n_pay,
+            packed.data_ptr(), score.data_ptr(), n, int(n_real), n_keys,
+            int(fuse_short), k_fwd, k_back, int(window), int(lbs),
+            int(len_shift), int(min_pos), stream)
     if err != 0:
         raise RuntimeError(f"fold_sorted_launch failed: CUDA error {err}")
     name = config_name(n_keys, n_pay, k_fwd, k_back, fuse_short)
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     return packed, score
-
-
-def _ctz_bytes(x: torch.Tensor) -> torch.Tensor:
-    """Trailing zero BYTES of 32-bit words (4 when x == 0), by byte-mask
-    compares (torch has no ctz or popcount)."""
-    i32 = torch.int32
-    return (((x & 0xFF) == 0).to(i32) + ((x & 0xFFFF) == 0).to(i32)
-            + ((x & 0xFFFFFF) == 0).to(i32) + (x == 0).to(i32))
-
-
-def _floor_log2(d: torch.Tensor) -> torch.Tensor:
-    """floor(log2 d) of positive int32 values, exactly: the binary
-    exponent of d as a float64 (every int32 is exact there)."""
-    return torch.frexp(d.to(torch.float64))[1] - 1
 
 
 def fold_sorted_ref(ops_sorted, min_pos: int, n_keys: int, k_fwd: int,
@@ -176,7 +120,7 @@ def fold_sorted_ref(ops_sorted, min_pos: int, n_keys: int, k_fwd: int,
         same = keys[0] == torch.roll(keys[0], j)
         if n_keys == 2:
             x1 = keys[1] ^ torch.roll(keys[1], j)
-            total = torch.where(same, 4 + _ctz_bytes(x1), 0)
+            total = torch.where(same, 4 + ctz_bytes(x1), 0)
             alive = same & (x1 == 0)
         else:
             total = torch.where(same, 4, 0).to(torch.int32)
@@ -184,13 +128,13 @@ def fold_sorted_ref(ops_sorted, min_pos: int, n_keys: int, k_fwd: int,
         cand = torch.roll(pos, j)
         dist = pos - cand
         for p in pays:
-            m = _ctz_bytes(p ^ torch.roll(p, j))
+            m = ctz_bytes(p ^ torch.roll(p, j))
             total = total + torch.where(alive, m, 0)
             alive = alive & (m == 4)
         ml = torch.minimum(total, limit)
         base_ok = same & in_range & (dist > 0) & (dist <= window) \
             & (cand >= min_pos)
-        logd = _floor_log2(torch.clamp(dist, min=1))
+        logd = floor_log2(torch.clamp(dist, min=1))
         valid = base_ok & (ml >= 4)
         ml = torch.where(valid, ml, 0)
         sc = torch.where(ml > 0, lbs * ml - DISTANCE_BIT_PENALTY * logd, 0)

@@ -1,5 +1,6 @@
-"""brotli_tpu_torch on the card: the CUDA fold kernel against its plain
-version, and the compress path on CUDA against the CPU path.
+"""brotli_tpu_torch on the card: the CUDA kernels (fold, match_rounds)
+against their plain versions, and the compress paths on CUDA against
+the CPU paths.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is
 false.  On a machine with a card:
@@ -14,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from brotli_tpu_torch import compress_gpu
+from brotli_tpu_torch import compress_fast, compress_gpu
 from brotli_tpu_torch.ops import fold_cuda as F
+from brotli_tpu_torch.ops import match_rounds_cuda as MR
 
 pytestmark = pytest.mark.cuda
 
@@ -39,7 +41,9 @@ def _data(n: int, seed: int) -> np.ndarray:
                                     (2, 0, 16, 8, False),
                                     (2, 2, 16, 8, False),
                                     (1, 1, 16, 0, False),
-                                    (2, 2, 16, 8, True)])
+                                    (2, 2, 16, 8, True),
+                                    (1, 5, 32, 0, False),
+                                    (1, 5, 16, 0, False)])
 def test_fold_kernel_matches_ref(config, min_pos):
     dev = _card()
     n_keys, n_pay, k_fwd, k_back, fuse = config
@@ -69,3 +73,44 @@ def test_compress_gpu_card_matches_cpu(quality):
     got = compress_gpu(data, quality=quality, span=1 << 16, device=dev)
     assert got == compress_gpu(data, quality=quality, span=1 << 16,
                                device="cpu")
+
+
+@pytest.mark.parametrize("rounds,m", [(1, 1), (4, 1000), (8, 100_003)])
+def test_match_rounds_kernel_matches_ref(rounds, m):
+    dev = _card()
+    rng = np.random.default_rng(rounds)
+    va = rng.integers(-(1 << 31), 1 << 31, size=(rounds, m), dtype=np.int64)
+    vb = va.copy()
+    # candidate i equals in its first i % (rounds + 1) rounds, then
+    # differs in one random byte of the next round
+    eq = np.arange(m) % (rounds + 1)
+    for r in range(rounds):
+        hit = eq == r
+        vb[r, hit] ^= 1 << (8 * rng.integers(0, 4, size=int(hit.sum())))
+    va_t = torch.from_numpy(va.astype(np.int32)).to(dev)
+    vb_t = torch.from_numpy(vb.astype(np.int32)).to(dev)
+    before = MR.LAUNCHES.get("match_rounds", 0)
+    got = MR.match_rounds(va_t, vb_t)
+    assert MR.LAUNCHES["match_rounds"] == before + 1
+    want = MR.match_rounds_ref(va_t, vb_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_compress_fast_card_matches_cpu():
+    dev = _card()
+    data = _data(300_000, seed=3).tobytes()
+    before = MR.LAUNCHES.get("match_rounds", 0)
+    got = compress_fast(data, device=dev)
+    assert MR.LAUNCHES["match_rounds"] == before + 3
+    assert got == compress_fast(data, device="cpu")
+
+
+@pytest.mark.parametrize("quality", [5, 9])
+def test_max_device_card_matches_cpu(quality):
+    dev = _card()
+    data = _data(300_000, seed=quality).tobytes()
+    got = compress_gpu(data, quality=quality, span=1 << 16,
+                       max_device=True, device=dev)
+    assert got == compress_gpu(data, quality=quality, span=1 << 16,
+                               max_device=True, device="cpu")

@@ -56,13 +56,17 @@ def _sorted_ops(d: np.ndarray, n_keys: int, n_pay: int):
 
 
 # (n_keys, n_pay, k_fwd, k_back, fuse_short): the four configurations
-# of the compress path and exact9_fused's fused short fold
+# of the compress path, exact9_fused's fused short fold, the two
+# max_device folds (6 attested rounds: 5 payloads) and a 4-payload one
 CONFIGS = {
     "q2-6": (1, 1, 32, 0, False),
     "q7-8": (2, 0, 16, 8, False),
     "q9-main": (2, 2, 16, 8, False),
     "q9-short": (1, 1, 16, 0, False),
     "fused": (2, 2, 16, 8, True),
+    "p4": (1, 4, 32, 0, False),
+    "max-device-q2-6": (1, 5, 32, 0, False),
+    "max-device-q7-9": (1, 5, 16, 0, False),
 }
 
 
@@ -92,6 +96,8 @@ def _wrapper_pair(name):
     return {
         "exact": (FP.best_matches_exact_p, FC.best_matches_exact_p,
                   dict(k=32, rounds=2)),
+        "exact_r6": (FP.best_matches_exact_p, FC.best_matches_exact_p,
+                     dict(k=16, rounds=6)),
         "exact8": (FP.best_matches_exact8_p, FC.best_matches_exact8_p,
                    dict(k=16, rounds=2)),
         "exact8_r4": (FP.best_matches_exact8_p, FC.best_matches_exact8_p,
@@ -105,8 +111,8 @@ def _wrapper_pair(name):
 
 
 @pytest.mark.parametrize("invert", [True, False])
-@pytest.mark.parametrize("name", ["exact", "exact8", "exact8_r4", "exact9",
-                                  "exact9_fused"])
+@pytest.mark.parametrize("name", ["exact", "exact_r6", "exact8",
+                                  "exact8_r4", "exact9", "exact9_fused"])
 def test_wrapper_matches_pallas(name, invert):
     jfn, tfn, kw = _wrapper_pair(name)
     d = _data(N, seed=11)

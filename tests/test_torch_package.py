@@ -17,6 +17,8 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
     code = (
         "import sys, brotli_tpu_torch\n"
         "import brotli_tpu_torch.encode.gpu_path, "
+        "brotli_tpu_torch.encode.fast, brotli_tpu_torch.ops.parse, "
+        "brotli_tpu_torch.ops.match_rounds_cuda, "
         "brotli_tpu_torch.native_bridge, brotli_tpu_torch.ops.split\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'brotli_tpu' or "
@@ -61,10 +63,14 @@ def test_no_file_imports_jax_or_brotli_tpu():
 
 def test_compress_gpu_without_device_raises_when_cuda_is_absent(
         monkeypatch):
-    from brotli_tpu_torch import compress_gpu, resolve_device
+    from brotli_tpu_torch import compress_fast, compress_gpu, resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compress_gpu(b"hello hello hello hello")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compress_gpu(b"hello hello hello hello", max_device=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compress_fast(b"hello hello hello hello")
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")

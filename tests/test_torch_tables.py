@@ -24,11 +24,15 @@ from brotli_tpu.ops import matching as JMat
 from brotli_tpu_torch import native_bridge as tnb
 from brotli_tpu_torch.core import bitio as TBIO
 from brotli_tpu_torch.core import constants as TC
+from brotli_tpu_torch.core import huffman as THuf
+from brotli_tpu_torch.core import prefix as TPre
 from brotli_tpu_torch.core.dictionary import get_dictionary as tget_dict
 from brotli_tpu_torch.encode import bitstream as TB
+from brotli_tpu_torch.encode import command as TCmd
 from brotli_tpu_torch.encode import gpu_path as TG
 from brotli_tpu_torch.encode import metablock as TM
 from brotli_tpu_torch.encode import static_dict as TSD
+from brotli_tpu_torch.encode.params import DistanceParams as TDist
 from brotli_tpu_torch.encode.params import from_reference
 from brotli_tpu_torch.ops import matching as TMat
 
@@ -207,3 +211,98 @@ def test_native_invert_and_decode_equal():
     from brotli_tpu import compress
     data = b"".join(tget_dict().data[i:i + 50] for i in range(0, 60000, 70))
     assert tnb.decode(compress(data, quality=9)) == data
+
+
+def test_code_tables_equal():
+    for name in ("INSERT_EXTRA", "INSERT_BASE", "COPY_EXTRA", "COPY_BASE",
+                 "CMD_IMPLICIT_DIST0", "CODE_LENGTH_CODE_ORDER",
+                 "CLCODE_BITS", "CLCODE_NBITS"):
+        np.testing.assert_array_equal(getattr(TC, name), getattr(JC, name))
+    assert TC.MAX_HUFF_BITS == JC.MAX_HUFF_BITS
+    lens = np.concatenate([np.arange(0, 3000), [22594, 22595, 1 << 24]])
+    np.testing.assert_array_equal(TC.get_insert_length_code(lens),
+                                  JC.get_insert_length_code(lens))
+    np.testing.assert_array_equal(TC.get_copy_length_code(lens + 2),
+                                  JC.get_copy_length_code(lens + 2))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_huffman_and_prefix_writer_equal(seed):
+    """build_huffman_lengths, encoding_table and write_prefix_code on
+    random histograms: sparse ones (simple codes), skewed ones (depth
+    limit) and dense ones (complex codes with RLE)."""
+    from brotli_tpu.core.bitio import BitWriter as JW
+    from brotli_tpu.core.huffman import build_huffman_lengths
+    from brotli_tpu.core.prefix import encoding_table, write_prefix_code
+    rng = np.random.default_rng(seed)
+    for size in (1, 4, 26, 256, 704):
+        for shape in ("sparse", "skewed", "dense"):
+            if shape == "sparse":
+                hist = np.zeros(size, np.int64)
+                hist[rng.integers(0, size, rng.integers(1, 5))] = \
+                    rng.integers(1, 100)
+            elif shape == "skewed":
+                hist = (2 ** rng.integers(0, 30, size)) * \
+                    (rng.random(size) < 0.7)
+                hist[0] += 1
+            else:
+                hist = rng.integers(0, 50, size)
+                hist[0] += 1
+            a = THuf.build_huffman_lengths(hist)
+            np.testing.assert_array_equal(a, build_huffman_lengths(hist))
+            assert a.max() <= 15
+            for x, y in zip(TPre.encoding_table(a), encoding_table(a)):
+                np.testing.assert_array_equal(x, y)
+            tw, jw = TBIO.BitWriter(), JW()
+            tw.write(5, 3)
+            jw.write(5, 3)
+            TPre.write_prefix_code(tw, a)
+            write_prefix_code(jw, a)
+            assert tw.getvalue() == jw.getvalue()
+            assert tw.bit_length() == jw.bit_length()
+
+
+def test_bitwriter_checkpoint_equal():
+    from brotli_tpu.core.bitio import BitWriter as JW
+    tw, jw = TBIO.BitWriter(), JW()
+    for w in (tw, jw):
+        w.write(0x2D, 6)
+        state = w.save_state()
+        w.write(0xABCDE, 20)
+        w.restore_state(state)
+        w.write(3, 2)
+    assert tw.getvalue() == jw.getvalue()
+    assert tw.bit_length() == jw.bit_length() == 8
+
+
+def test_native_resolve_and_pack_equal():
+    from brotli_tpu.encode.command import command_extra_bits
+    from brotli_tpu.encode.command import resolve_commands
+    from brotli_tpu.encode.params import DistanceParams
+    rng = np.random.default_rng(12)
+    n = 3000
+    ins = rng.integers(0, 40, n)
+    cps = rng.integers(2, 300, n)
+    cps[-1] = 0
+    dst = np.where(rng.random(n) < 0.4, rng.choice([4, 11, 15, 16], n),
+                   rng.integers(1, 60000, n))
+    for cache in ((4, 11, 15, 16), (9, 300, 7, 12)):
+        a, ca = TCmd.resolve_commands(ins, cps, dst, TDist(), advance=cps,
+                                      initial_cache=cache, pos_offset=100,
+                                      window_size=1 << 16)
+        b, cb = resolve_commands(ins, cps, dst, DistanceParams(),
+                                 advance=cps, initial_cache=cache,
+                                 pos_offset=100, window_size=1 << 16)
+        assert list(ca) == list(cb)
+        for f in ("dist_code", "dist_extra", "dist_extra_bits", "cmd_sym",
+                  "copy_advance"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        for x, y in zip(TCmd.command_extra_bits(a), command_extra_bits(b)):
+            np.testing.assert_array_equal(x, y)
+    nbits = rng.integers(0, 33, 5000)
+    bits = np.array([int(rng.integers(0, 1 << int(k))) if k else 0
+                     for k in nbits], np.uint64)
+    tw, tt = tnb.pack_bits(bits, nbits)
+    jw, jt = jnb.pack_bits(bits, nbits)
+    assert tt == jt
+    np.testing.assert_array_equal(tw[:tt // 64 + 1], jw[:jt // 64 + 1])
