@@ -1,4 +1,4 @@
-"""brotli_tpu_torch: brotli_tpu's device compress paths in PyTorch + CUDA.
+"""brotli_tpu_torch: brotli_tpu's device paths in PyTorch + CUDA.
 
 The port of brotli_tpu's device tier to an NVIDIA H100.  It imports
 torch and numpy, never jax and nothing of brotli_tpu: the host-side
@@ -10,16 +10,21 @@ runtime in native/ is built by its own bridge (native_bridge.py).
       q2-q9, byte-identical to brotli_tpu's compress_tpu
   compress_fast(data, lgwin=22, quality=1, device=None) -> bytes
       q0/q1, byte-identical to brotli_tpu.encode.fast.compress_fast
+  decompress_batch_gpu(streams, max_rounds=8, device=None)
+      -> (outputs, n_device), equal to brotli_tpu's decompress_batch_tpu
 
-Both run on CUDA unless device="cpu" is passed; without CUDA and
-without device="cpu" they raise.  The match fold (csrc/fold.cu) and
-the match-length round chain (csrc/match_rounds.cu) are CUDA C++
-kernels built with nvcc at first use; on CPU tensors their plain
-PyTorch versions run instead.
+All three run on CUDA unless device="cpu" is passed; without CUDA and
+without device="cpu" they raise.  The match fold (csrc/fold.cu), the
+match-length round chain (csrc/match_rounds.cu) and the batch decoder's
+per-lane symbol loop (csrc/decode_step.cu) are CUDA C++ kernels built
+with nvcc at first use; on CPU tensors their plain PyTorch versions run
+instead.
 """
 
+from .decode.batch_gpu import decompress_batch_gpu
 from .device import resolve_device
 from .encode.fast import compress_fast
 from .encode.gpu_path import compress_gpu
 
-__all__ = ["compress_fast", "compress_gpu", "resolve_device"]
+__all__ = ["compress_fast", "compress_gpu", "decompress_batch_gpu",
+           "resolve_device"]

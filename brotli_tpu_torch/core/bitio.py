@@ -1,13 +1,78 @@
-"""LSB-first bit writer for the RFC 7932 stream (host side).
+"""LSB-first bit reader and writer for the RFC 7932 stream (host side).
 
-A trimmed copy of brotli_tpu/core/bitio.py's BitWriter: headers,
-whole-byte stores, the append of natively packed metablocks, and the
-checkpoint that rolls a metablock back for the uncompressed fallback.
+A trimmed copy of brotli_tpu/core/bitio.py.  BitReader: what the batch
+decoder's header walk reads (bits, peeks, byte alignment, whole bytes,
+the bit position).  BitWriter: headers, whole-byte stores, the append
+of natively packed metablocks, and the checkpoint that rolls a
+metablock back for the uncompressed fallback.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+class NeedsMoreInput(Exception):
+    """Raised by BitReader when the buffer is exhausted mid-read."""
+
+
+class BitReader:
+    """LSB-first bit reader over a byte buffer; `bit_pos` is the
+    absolute position of the next bit."""
+
+    __slots__ = ("data", "bit_pos", "bit_len")
+
+    def __init__(self, data):
+        self.data = np.frombuffer(bytes(data), dtype=np.uint8)
+        self.bit_pos = 0
+        self.bit_len = len(self.data) * 8
+
+    def read(self, nbits: int) -> int:
+        """Read nbits (<= 57) LSB-first."""
+        pos = self.bit_pos
+        end = pos + nbits
+        if end > self.bit_len:
+            raise NeedsMoreInput()
+        if nbits == 0:
+            return 0
+        chunk = self.data[pos >> 3:(end + 7) >> 3]
+        val = 0
+        for i, b in enumerate(chunk.tolist()):
+            val |= b << (8 * i)
+        val = (val >> (pos & 7)) & ((1 << nbits) - 1)
+        self.bit_pos = end
+        return val
+
+    def peek(self, nbits: int) -> int:
+        """Peek up to nbits; missing tail bits are zero-filled."""
+        pos = self.bit_pos
+        byte1 = min((pos + nbits + 7) >> 3, len(self.data))
+        val = 0
+        for i, b in enumerate(self.data[pos >> 3:byte1].tolist()):
+            val |= b << (8 * i)
+        return (val >> (pos & 7)) & ((1 << nbits) - 1)
+
+    def skip(self, nbits: int):
+        if self.bit_pos + nbits > self.bit_len:
+            raise NeedsMoreInput()
+        self.bit_pos += nbits
+
+    def align_to_byte(self) -> int:
+        """Skip to the next byte boundary; returns the skipped bits (the
+        caller checks that they are zero)."""
+        n = (-self.bit_pos) & 7
+        return self.read(n) if n else 0
+
+    def read_bytes(self, n: int) -> bytes:
+        """Read n whole bytes (the reader must be byte-aligned)."""
+        if self.bit_pos & 7:
+            raise ValueError("read_bytes: reader is not byte-aligned")
+        if self.bit_pos + 8 * n > self.bit_len:
+            raise NeedsMoreInput()
+        byte0 = self.bit_pos >> 3
+        out = self.data[byte0:byte0 + n].tobytes()
+        self.bit_pos += 8 * n
+        return out
 
 
 class BitWriter:

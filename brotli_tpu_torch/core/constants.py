@@ -1,11 +1,12 @@
-"""RFC 7932 format constants used by the device compress paths.
+"""RFC 7932 format constants used by the device compress and decode paths.
 
 A trimmed copy of brotli_tpu/core/constants.py: the distance cache
 seed, the literal context modes and their lookup tables (loaded from
 this package's data/context_lut.npy), the window-bits header code, the
-dictionary word bounds, and what the trivial metablock store reads --
-the insert/copy length codes, the command cells that imply distance 0
-and the code-length code tables.
+dictionary word bounds, what the trivial metablock store reads -- the
+insert/copy length codes, the command cells and the code-length code
+tables -- and what the batch decoder reads: the distance short codes
+and the distance alphabet size.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import os
 import numpy as np
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "data")
+
+NUM_DISTANCE_SHORT_CODES = 16
 
 LARGE_MAX_WINDOW_BITS = 30
 
@@ -51,10 +54,41 @@ def get_copy_length_code(copy_len):
         np.int64)
 
 
-# The 704 command symbols are 11 cells of 64; cells 0 and 1 imply
-# distance code 0 and carry no distance symbol (RFC 7932 section 5).
+# The 704 command symbols are 11 cells of 64 (RFC 7932 section 5):
+# within a cell the low 3 bits select the copy code and bits 3-5 the
+# insert code; cells 0 and 1 imply distance code 0 and carry no
+# distance symbol.
+_CELLS = [  # (insert_code_base, copy_code_base, implicit_distance_zero)
+    (0, 0, True), (0, 8, True),
+    (0, 0, False), (0, 8, False),
+    (8, 0, False), (8, 8, False),
+    (0, 16, False), (16, 0, False),
+    (8, 16, False), (16, 8, False),
+    (16, 16, False),
+]
+
+CMD_TO_INSERT_CODE = np.zeros(704, dtype=np.int64)
+CMD_TO_COPY_CODE = np.zeros(704, dtype=np.int64)
 CMD_IMPLICIT_DIST0 = np.zeros(704, dtype=bool)
-CMD_IMPLICIT_DIST0[:128] = True
+for _cell, (_ib, _cb, _imp) in enumerate(_CELLS):
+    _idx = np.arange(64) + 64 * _cell
+    CMD_TO_INSERT_CODE[_idx] = _ib + ((np.arange(64) >> 3) & 7)
+    CMD_TO_COPY_CODE[_idx] = _cb + (np.arange(64) & 7)
+    CMD_IMPLICIT_DIST0[_idx] = _imp
+
+# Distance short codes 0..15 as (cache index, delta) (RFC 7932 section 4)
+DISTANCE_SHORT_CODE_INDEX = np.array(
+    [0, 1, 2, 3, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 1], dtype=np.int64)
+DISTANCE_SHORT_CODE_DELTA = np.array(
+    [0, 0, 0, 0, -1, 1, -2, 2, -3, 3, -1, 1, -2, 2, -3, 3], dtype=np.int64)
+
+
+def distance_alphabet_size(npostfix: int, ndirect: int,
+                           max_distbits: int = 24):
+    """Number of distance symbols for NPOSTFIX/NDIRECT (24 distance
+    bits for a regular stream)."""
+    return NUM_DISTANCE_SHORT_CODES + ndirect + (max_distbits
+                                                 << (npostfix + 1))
 
 # Code-length code (RFC 7932 section 3.5): the order its lengths are
 # sent in, and the fixed code of those lengths (LSB-first bits, nbits)
@@ -64,6 +98,8 @@ CODE_LENGTH_CODE_ORDER = np.array(
 CLCODE_BITS = np.array([0b00, 0b0111, 0b011, 0b10, 0b01, 0b1111, 0, 0],
                        dtype=np.int64)
 CLCODE_NBITS = np.array([2, 4, 3, 2, 2, 4, 0, 0], dtype=np.int64)
+REPEAT_PREVIOUS_CODE_LENGTH = 16  # 2 extra bits
+REPEAT_ZERO_CODE_LENGTH = 17      # 3 extra bits
 
 # Most-recent-first: "last distance" starts as 4 (RFC 7932 section 4).
 INITIAL_DISTANCE_CACHE = (4, 11, 15, 16)

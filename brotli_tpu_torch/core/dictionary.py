@@ -2,8 +2,9 @@
 
 A trimmed copy of brotli_tpu/core/dictionary.py: the tables load from
 this package's data/ directory (dictionary.bin, dictionary_meta.npz,
-transforms.npz).  The encoder's dictionary matcher and the native
-decoder's dictionary install read them.
+transforms.npz).  The encoder's dictionary matcher, the native
+decoder's dictionary install and the batch decoder (transform output
+lengths, RFC 7932 section 8) read them.
 """
 
 from __future__ import annotations
@@ -21,8 +22,11 @@ from .constants import (
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "data")
 
-# Transform type of the first OmitLast transform (RFC 7932 Appendix B)
-OMIT_LAST_1 = 1
+# Transform types (RFC 7932 Appendix B)
+OMIT_LAST_1, OMIT_LAST_9 = 1, 9
+UPPERCASE_FIRST = 10
+UPPERCASE_ALL = 11
+OMIT_FIRST_1, OMIT_FIRST_9 = 12, 20
 
 
 class StaticDictionary:
@@ -46,6 +50,40 @@ class StaticDictionary:
                 <= MAX_DICTIONARY_WORD_LENGTH):
             return 0
         return 1 << int(self.size_bits_by_length[length])
+
+
+def _ferment(buf: bytearray, i: int) -> int:
+    """RFC 7932 'ferment' (uppercase) step; returns bytes consumed."""
+    c = buf[i]
+    if c < 192:
+        if ord("a") <= c <= ord("z"):
+            buf[i] = c ^ 32
+        return 1
+    if c < 224:
+        if i + 1 < len(buf):
+            buf[i + 1] ^= 32
+        return 2
+    if i + 2 < len(buf):
+        buf[i + 2] ^= 5
+    return 3
+
+
+def apply_transform(d: StaticDictionary, word: bytes,
+                    transform_id: int) -> bytes:
+    ty = d.t_type[transform_id]
+    w = bytearray(word)
+    if OMIT_FIRST_1 <= ty <= OMIT_FIRST_9:
+        w = w[ty - (OMIT_FIRST_1 - 1):]
+    elif OMIT_LAST_1 <= ty <= OMIT_LAST_9:
+        w = w[:-ty] if len(w) > ty else bytearray()
+    if ty == UPPERCASE_FIRST:
+        if w:
+            _ferment(w, 0)
+    elif ty == UPPERCASE_ALL:
+        i = 0
+        while i < len(w):
+            i += _ferment(w, i)
+    return d.t_prefix[transform_id] + bytes(w) + d.t_suffix[transform_id]
 
 
 @lru_cache(maxsize=1)

@@ -1,9 +1,9 @@
-"""Canonical prefix (Huffman) codes: code assignment and the writer.
+"""Canonical prefix (Huffman) codes: code assignment, reader and writer.
 
 A trimmed copy of brotli_tpu/core/prefix.py (RFC 7932 section 3):
 canonical codes (3.2), simple prefix codes (3.4) and complex prefix
-codes with the code-length code and RLE repeats (3.5), as written by
-the encoder.
+codes with the code-length code and RLE repeats (3.5), as the encoder
+writes them and as the batch decoder's header walk reads them.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from .constants import (CLCODE_BITS, CLCODE_NBITS, CODE_LENGTH_CODE_ORDER,
-                        MAX_HUFF_BITS)
+                        MAX_HUFF_BITS, REPEAT_PREVIOUS_CODE_LENGTH)
 from .huffman import build_huffman_lengths
 
 
@@ -50,8 +50,161 @@ def lengths_to_codes(lengths: np.ndarray) -> np.ndarray:
     return bit_reverse(codes, np.maximum(lengths, 0)).astype(np.int64)
 
 
+def check_complete(lengths: np.ndarray) -> bool:
+    """Kraft equality check (the format requires complete codes)."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    nz = lengths[lengths > 0]
+    if len(nz) == 0:
+        return False
+    if len(nz) == 1:
+        return True  # single-symbol code, zero bits
+    return int(np.sum(1 << (MAX_HUFF_BITS - nz))) == 1 << MAX_HUFF_BITS
+
+
+class PrefixDecoder:
+    """Peek-based prefix decoder built from code lengths."""
+
+    __slots__ = ("max_len", "sym_table", "len_table", "single")
+
+    def __init__(self, lengths: np.ndarray):
+        lengths = np.asarray(lengths, dtype=np.int64)
+        nz_syms = np.nonzero(lengths > 0)[0]
+        if len(nz_syms) == 0:
+            raise ValueError("empty prefix code")
+        if len(nz_syms) == 1:
+            self.single = int(nz_syms[0])
+            self.max_len = 0
+            self.sym_table = None
+            self.len_table = None
+            return
+        self.single = -1
+        if not check_complete(lengths):
+            raise ValueError("incomplete/oversubscribed prefix code")
+        top = int(np.max(lengths))
+        self.max_len = top
+        codes = lengths_to_codes(lengths)
+        sym_table = np.zeros(1 << top, dtype=np.int32)
+        len_table = np.zeros(1 << top, dtype=np.int8)
+        for ln in range(1, top + 1):
+            syms = np.nonzero(lengths == ln)[0]
+            if len(syms) == 0:
+                continue
+            reps = np.arange(1 << (top - ln), dtype=np.int64) << ln
+            idx = (codes[syms][:, None] + reps[None, :]).ravel()
+            sym_table[idx] = np.repeat(syms, 1 << (top - ln))
+            len_table[idx] = ln
+        self.sym_table = sym_table
+        self.len_table = len_table
+
+    def decode(self, reader) -> int:
+        if self.single >= 0:
+            return self.single
+        bits = reader.peek(self.max_len)
+        reader.skip(int(self.len_table[bits]))
+        return int(self.sym_table[bits])
+
+
 def _alphabet_bits(alphabet_size: int) -> int:
     return max(1, (alphabet_size - 1).bit_length())
+
+
+def read_prefix_code(reader, alphabet_size: int) -> np.ndarray:
+    """Read a prefix-code description; returns per-symbol code lengths
+    (a one-symbol simple code gets the marker length 1)."""
+    lengths = np.zeros(alphabet_size, dtype=np.int64)
+    hskip = reader.read(2)
+    if hskip == 1:
+        # simple code with 1..4 symbols
+        nsym = reader.read(2) + 1
+        bits = _alphabet_bits(alphabet_size)
+        syms = []
+        for _ in range(nsym):
+            s = reader.read(bits)
+            if s >= alphabet_size or s in syms:
+                raise ValueError("invalid simple prefix code symbol")
+            syms.append(s)
+        if nsym == 1:
+            lengths[syms[0]] = 1
+        elif nsym == 2:
+            lengths[syms[0]] = lengths[syms[1]] = 1
+        elif nsym == 3:
+            lengths[syms[0]] = 1
+            lengths[syms[1]] = lengths[syms[2]] = 2
+        elif reader.read(1):
+            lengths[syms[0]] = 1
+            lengths[syms[1]] = 2
+            lengths[syms[2]] = lengths[syms[3]] = 3
+        else:
+            lengths[syms] = 2
+        return lengths
+
+    # complex code: the code-length code's lengths first
+    cl_lengths = np.zeros(18, dtype=np.int64)
+    space = 0
+    num_codes = 0
+    for i in range(hskip, 18):
+        ln = _read_clcode_length(reader)
+        cl_lengths[int(CODE_LENGTH_CODE_ORDER[i])] = ln
+        if ln:
+            num_codes += 1
+            space += 32 >> ln
+            if space >= 32:
+                break
+    if num_codes != 1 and space != 32:  # one code-length code is allowed
+        raise ValueError("corrupt code-length code")
+    cl_decoder = PrefixDecoder(cl_lengths)
+
+    # symbol code lengths with RLE repeats
+    space = 0
+    prev_nonzero = 8
+    i = 0
+    prev_repeat_sym = -1
+    repeat = 0
+    while i < alphabet_size and space < 32768:
+        sym = cl_decoder.decode(reader)
+        if sym < 16:
+            lengths[i] = sym
+            i += 1
+            prev_repeat_sym = -1
+            if sym:
+                prev_nonzero = sym
+                space += 32768 >> sym
+            continue
+        extra_bits = 2 if sym == REPEAT_PREVIOUS_CODE_LENGTH else 3
+        extra = reader.read(extra_bits)
+        if prev_repeat_sym == sym:
+            new_repeat = ((repeat - 2) << extra_bits) + 3 + extra
+            delta = new_repeat - repeat
+        else:
+            new_repeat = 3 + extra
+            delta = new_repeat
+        repeat = new_repeat
+        prev_repeat_sym = sym
+        val = prev_nonzero if sym == REPEAT_PREVIOUS_CODE_LENGTH else 0
+        if i + delta > alphabet_size:
+            raise ValueError("repeat overruns alphabet")
+        lengths[i:i + delta] = val
+        i += delta
+        if val:
+            space += delta * (32768 >> val)
+    if space > 32768:
+        raise ValueError("oversubscribed prefix code")
+    if space != 32768:
+        raise ValueError("incomplete prefix code")
+    return lengths
+
+
+def _read_clcode_length(reader) -> int:
+    """Decode one symbol of the fixed code-length-code code (RFC 3.5):
+    00 -> 0, 01 -> 3, 10 -> 4, 110 -> 2, 1110 -> 1, 1111 -> 5 (bits in
+    reading order)."""
+    if reader.read(1) == 0:
+        return 0 if reader.read(1) == 0 else 3
+    if reader.read(1) == 0:
+        return 4
+    if reader.read(1) == 0:
+        return 2
+    return 1 if reader.read(1) == 0 else 5
 
 
 def write_prefix_code(writer, lengths: np.ndarray):

@@ -10,7 +10,9 @@ there is no pure-Python fallback on this path.
 Bound here: greedy_parse, extend_caps, encode_metablock,
 invert_perm32 / invert_merge32 (the host inversion of the device's
 sorted-space fold outputs), resolve_distance_codes and pack_bits (the
-q0/q1 trivial metablock store) and decode (used to check round trips).
+q0/q1 trivial metablock store), decode (the host decoder), and the
+batch decoder's lane-header walk (parse_lane_header) and LZ execution
+of device-decoded commands (lz_execute).
 """
 
 from __future__ import annotations
@@ -146,6 +148,12 @@ def _bind(lib) -> None:
     lib.decode_native.restype = I64
     lib.decode_native.argtypes = [U8P, I64, U8P, I64, U8P, I64, I64,
                                   I32P, I64]
+    lib.lz_execute_native.restype = I64
+    lib.lz_execute_native.argtypes = [U8P, I64, I32P, I64, I64, I64, I64,
+                                      U8P]
+    lib.parse_lane_header_native.restype = I64
+    lib.parse_lane_header_native.argtypes = [U8P, I64, I64P, I64P, I64,
+                                             U8P, U8P, U8P]
     lib.decoder_set_dictionary.restype = None
     lib.decoder_set_dictionary.argtypes = [U8P, I64P, I64P, U8P, I64P,
                                            U8P, I64P, I64P, U8P, U8P]
@@ -208,6 +216,56 @@ def decode(data: bytes) -> bytes:
         if r < 0:
             raise ValueError(int(r))
         return out[:r].tobytes()
+
+
+def lz_execute(prefix: bytes, lits, cmds, ncmd: int, window: int,
+               mlen: int):
+    """Apply device-decoded literals and (insert, copy, distance)
+    commands over the output so far (`prefix`; distances reach into it,
+    and past the window they name static-dictionary words).  Returns
+    the metablock's `mlen` bytes, or None when the commands do not
+    produce exactly `mlen` bytes."""
+    lib = get_lib()
+    lits = np.ascontiguousarray(lits, np.uint8)
+    cmds = np.ascontiguousarray(cmds, np.int32)
+    if cmds.ndim != 2 or cmds.shape[1] != 3 or len(cmds) < ncmd:
+        raise ValueError("lz_execute: cmds must be int32 [>= ncmd, 3]")
+    buf = np.empty(len(prefix) + int(mlen) + 64, np.uint8)
+    if len(prefix):
+        buf[:len(prefix)] = np.frombuffer(prefix, np.uint8)
+    r = lib.lz_execute_native(
+        _ptr(lits, U8P), len(lits), _ptr(cmds, I32P), int(ncmd),
+        len(prefix), int(window), int(mlen), _ptr(buf, U8P))
+    if r != mlen:
+        return None
+    return buf[len(prefix):len(prefix) + int(mlen)].tobytes()
+
+
+def parse_lane_header(data: bytes):
+    """Native single-pass header walk of one stream for the batch
+    decoder: uncompressed and metadata metablocks, then one final
+    compressed metablock with one block type per category and one
+    literal and one distance tree.  Returns None when the stream does
+    not have that shape (or is truncated or corrupt), else (meta,
+    pre_segments, lit_len, cmd_len, dist_len) with meta = (bit0, mlen,
+    wbits, npostfix, ndirect, dist_alpha, n_pre, out_prefix_len) and
+    pre_segments the (byte offset, length) of the uncompressed
+    metablocks before it."""
+    lib = get_lib()
+    buf = np.frombuffer(bytes(data), np.uint8)
+    meta = np.zeros(8, np.int64)
+    pre = np.zeros(2 * 64, np.int64)
+    lit = np.zeros(256, np.uint8)
+    cmd = np.zeros(704, np.uint8)
+    dl = np.zeros(1024, np.uint8)
+    r = lib.parse_lane_header_native(
+        _ptr(buf, U8P), len(buf), _ptr(meta), _ptr(pre), 64,
+        _ptr(lit, U8P), _ptr(cmd, U8P), _ptr(dl, U8P))
+    if r != 1:
+        return None
+    segs = [(int(pre[2 * i]), int(pre[2 * i + 1]))
+            for i in range(int(meta[6]))]
+    return meta, segs, lit, cmd, dl[:int(meta[5])]
 
 
 # greedy walk tuning (the reference's values, as brotli_tpu passes

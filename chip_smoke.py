@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py            # the full run, on one card
 
-Builds the native runtime (native/*.cpp, g++) and the two CUDA kernels
-(brotli_tpu_torch/csrc/fold.cu and match_rounds.cu, nvcc for sm_90a)
-side by side, makes a 32 MiB corpus from a seed (text files of the
-repo that the port leaves unchanged, zipf-distributed words,
-structured records with noise, slowly varying integers, random bytes),
-then:
+Builds the native runtime (native/*.cpp, g++) and the CUDA kernels
+(brotli_tpu_torch/csrc/fold.cu, match_rounds.cu and decode_step.cu,
+nvcc for sm_90a) side by side, reads the fewest instructions one step
+of decode_step executes from its SASS (cuobjdump; the operation count
+of its bound), makes a 32 MiB corpus from a seed (text files of the
+repo that the port leaves unchanged, zipf-distributed words, structured
+records with noise, slowly varying integers, random bytes), then:
 
   kernel phase  each fold configuration on 4,718,592 sorted rows of
                 the corpus (the row of one 512 KiB span at lgwin 22),
@@ -17,7 +18,14 @@ then:
                 by 1, as compress_fast runs it): each kernel must equal
                 its plain version on the card bit for bit; prints
                 kernel ms (CUDA events, median of 15), the bound, and
-                the plain version's ms
+                the plain version's ms.  step_probe (TPU probe #9's
+                kernel function) at the probe's shape, 128 lanes x 2048
+                steps with 0/1/2 reads, and decode_step (the batch
+                decoder's symbol loop) on 64 lanes of <= 8 KiB from
+                every stream source (compress_fast q1, native q3,
+                compress_gpu q3 with static-dictionary references, a
+                lane with flipped bits), at the full step cap and at a
+                small one: each equal to its plain version
   path phase    on the whole corpus at lgwin 22: compress_gpu at q5,
                 q7 and q9; compress_fast at q0 and q1; compress_gpu
                 max_device at q5 and q9.  Each path's launch counters
@@ -25,8 +33,24 @@ then:
                 each path must have launched each of its kernels; every
                 output must decode back (libbrotlidec when present,
                 else the port's native decoder)
+  decode path   decompress_batch_gpu on a serving batch (1024 streams
+                of 64 KiB: half compress_fast q1, half native q3), a
+                multi-round batch (8 streams of 8 MiB through
+                compress_fast: two 4 MiB metablocks, two device rounds)
+                and a fallback batch (16 streams of 64 KiB at native
+                q11, context-modeled, all decoded on the host), slices
+                of the corpus's first 24 MiB; outputs equal inputs,
+                n_device is 1024 / 8 / 0 and decode_step launches once
+                per device round; prints decoded MB/s, kernel ms per
+                round, steps per lane and the share of the call spent
+                waiting on the device; then decode_step against its
+                plain version in all seven outputs and the step counts
+                on all 1024 of the serving batch's lanes, with the
+                arrays, step cap and buffer sizes the path gives it
   cpu check     each path on the card equals the same path with
-                device="cpu" byte for byte on a 1 MiB prefix
+                device="cpu" byte for byte on a 1 MiB prefix, and
+                decompress_batch_gpu on the card equals device="cpu" on
+                32 streams of 4 KiB
   profile       where one q9 call on 8 MiB spends its time: host
                 functions by own time (cProfile), device kernels by
                 device time and the device's idle share (torch.profiler)
@@ -44,6 +68,8 @@ import ctypes.util
 import glob
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -58,6 +84,14 @@ SRC = "brotli_tpu_torch/csrc/fold.cu"
 REPLACES = "brotli_tpu/ops/fold_pallas.py:250"
 MR_SRC = "brotli_tpu_torch/csrc/match_rounds.cu"
 MR_REPLACES = "brotli_tpu/ops/pallas_match.py:62"
+DS_SRC = "brotli_tpu_torch/csrc/decode_step.cu"
+DS_REPLACES = "brotli_tpu/ops/decode_tpu.py:450"
+SP_REPLACES = "research/decode_step_kernel_probe.py:94"
+PROBE_LANES, PROBE_STEPS = 128, 2048
+DECODE_SPAN = 24 << 20      # the corpus's repo text, prose and records
+SERVE_STREAMS, SERVE_BYTES = 1024, 1 << 16
+MULTI_STREAMS, MULTI_BYTES = 8, 8 << 20
+FALLBACK_STREAMS = 16
 SHARD = 1 << 22             # compress_fast's shard
 CORPUS_DOCS = ["PAPER.md", "PAPERS.md", "SNIPPETS.md", "SURVEY.md"]
 CORPUS_MIB = 32
@@ -88,10 +122,11 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def build_all():
-    """Native runtime and both CUDA kernels, compiled side by side."""
+def build_all() -> str:
+    """Native runtime and the three CUDA kernel sources, compiled side by
+    side; returns the path of the built decode_step library."""
     from brotli_tpu_torch import native_bridge as nb
-    from brotli_tpu_torch.ops import fold_cuda, match_rounds_cuda
+    from brotli_tpu_torch.ops import decode_gpu, fold_cuda, match_rounds_cuda
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -99,17 +134,78 @@ def build_all():
         return out, time.perf_counter() - t0
 
     builds = {"native": nb.build, "fold.cu": fold_cuda.LIB.build,
-              "match_rounds.cu": match_rounds_cuda.LIB.build}
+              "match_rounds.cu": match_rounds_cuda.LIB.build,
+              "decode_step.cu": decode_gpu.LIB.build}
     with ThreadPoolExecutor(len(builds)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in builds.items()}
         done = {k: f.result() for k, f in futs.items()}
     log("build: " + ", ".join(f"{k} {t:.1f} s" for k, (_, t) in
                               done.items()))
-    for k in ("fold.cu", "match_rounds.cu"):
+    for k in ("fold.cu", "match_rounds.cu", "decode_step.cu"):
         for ln in done[k][0][1].splitlines():
             if "registers" in ln or ("spill" in ln and
                                      " 0 bytes spill stores" not in ln):
                 log(f"  ptxas {k}:", ln.strip())
+    return done["decode_step.cu"][0][0]
+
+
+def sass_step_floor(lib_path: str, kernel: str = "decode_step_kernel"):
+    """The fewest SASS instructions one trip of `kernel`'s step loop can
+    execute, from `cuobjdump -sass` of the built library: the kernel's
+    control-flow graph (branch targets and fall-throughs), the loop head
+    as the target of its widest backward branch, and the shortest cycle
+    through that head (breadth-first, one instruction a node).  Returns
+    (instructions per trip at least, the kernel's instructions)."""
+    from collections import deque
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    insns, inside = [], False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            if insns:
+                break   # the kernel's listing ends at the next function
+            inside = kernel in ln
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if inside and m:
+            insns.append((int(m.group(1), 16), m.group(2).strip()))
+    if not insns:
+        raise AssertionError(f"sass: no instructions of {kernel} in "
+                             f"{lib_path}")
+    index = {a: k for k, (a, _) in enumerate(insns)}
+    succ, back = [], []
+    for k, (addr, text) in enumerate(insns):
+        guarded = text.startswith("@") and not text.startswith("@PT ")
+        op = text.split()[1 if text.startswith("@") else 0]
+        nxt = [k + 1] if k + 1 < len(insns) else []
+        if op.startswith(("BRX", "JMX")):
+            raise AssertionError(f"sass: indirect branch at {addr:#x}")
+        if op.startswith("BRA"):
+            tgt = index[int(re.findall(r"0x([0-9a-f]+)", text)[-1], 16)]
+            # an unguarded BRA with a predicate operand is conditional too
+            cond = guarded or "," in text
+            succ.append([tgt] + (nxt if cond else []))
+            if tgt <= k:
+                back.append((k - tgt, tgt))
+        elif op.startswith(("EXIT", "RET")):
+            succ.append(nxt if guarded else [])
+        else:
+            succ.append(nxt)
+    if not back:
+        raise AssertionError(f"sass: {kernel} has no loop")
+    head = max(back)[1]
+    dist = {head: 1}
+    queue = deque([head])
+    while queue:
+        u = queue.popleft()
+        for v in succ[u]:
+            if v == head:
+                return dist[u], len(insns)
+            if v not in dist:
+                dist[v] = dist[u] + 1
+                queue.append(v)
+    raise AssertionError(f"sass: no path around {kernel}'s loop")
 
 
 def make_corpus(mib: int, seed: int):
@@ -460,6 +556,371 @@ def profile_phase(corpus, dev, quality=9, mib=8):
             f"{e.key[:90]}")
 
 
+def _native_encoder():
+    """BrotliEncoderCompress of the port's native runtime (native/capi.cpp)
+    as enc(data, quality) -> bytes."""
+    from brotli_tpu_torch import native_bridge as nb
+    lib = ctypes.CDLL(nb.build())
+    fn = lib.BrotliEncoderCompress
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_size_t,
+                   ctypes.c_char_p, ctypes.POINTER(ctypes.c_size_t),
+                   ctypes.c_char_p]
+
+    def enc(data: bytes, quality: int) -> bytes:
+        cap = len(data) + (len(data) >> 2) + 1024
+        out = ctypes.create_string_buffer(cap)
+        size = ctypes.c_size_t(cap)
+        if fn(quality, 22, 0, len(data), data, ctypes.byref(size), out) != 1:
+            raise AssertionError(f"BrotliEncoderCompress q{quality} failed")
+        return out.raw[:size.value]
+    return enc
+
+
+def _bound(nbytes: float, nops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def step_probe_phase(dev):
+    """TPU probe #9's kernel function at the probe's shape: the probe's
+    own run (one launch per read count, counts set to 0 just before and
+    read just after), then kernel against plain version and timings."""
+    import numpy as np
+    import torch
+
+    from brotli_tpu_torch.ops import decode_gpu as D
+    tab = torch.from_numpy(np.arange(PROBE_LANES * 1056, dtype=np.int32)
+                           .reshape(PROBE_LANES, 1056) % 997).to(dev)
+    st = torch.arange(PROBE_LANES, dtype=torch.int32, device=dev)[None, :]
+    launches = {}
+    D.LAUNCHES["step_probe"] = 0
+    for reads in (0, 1, 2):   # the probe's run: P3, P1, P2
+        before = D.LAUNCHES["step_probe"]
+        D.step_probe(tab, st, PROBE_STEPS, reads)
+        launches[reads] = D.LAUNCHES["step_probe"] - before
+    torch.cuda.synchronize()
+    results = {}
+    for reads in (0, 1, 2):
+        got = D.step_probe(tab, st, PROBE_STEPS, reads)
+        want = D.step_probe_ref(tab, st, PROBE_STEPS, reads)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"step_probe reads={reads}: kernel != "
+                                 "step_probe_ref")
+        ms = _median_ms(lambda: D.step_probe(tab, st, PROBE_STEPS, reads), 15)
+        plain_ms = _median_ms(
+            lambda: D.step_probe_ref(tab, st, PROBE_STEPS, reads), 3)
+        # the table reads and the state in and out; per lane and step an
+        # LCG (3 ops), an index add and an accumulate per read, an add
+        # and a mask
+        bound_ms, by = _bound(
+            4 * PROBE_LANES * (PROBE_STEPS * reads + 2),
+            PROBE_LANES * PROBE_STEPS * (5 + 2 * reads))
+        results[reads] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=by, launches=launches[reads],
+                              max_abs_err=int((got - want).abs().max()))
+        log(f"kernel step_probe reads={reads}: equal to step_probe_ref at "
+            f"{PROBE_LANES} lanes x {PROBE_STEPS} steps; kernel {ms:.4f} ms"
+            f" ({ms * 1e3 / PROBE_STEPS:.4f} us per step), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({by})")
+    return results
+
+
+def _lanes_of(streams):
+    from brotli_tpu_torch.decode import batch_gpu as B
+    lanes = []
+    for s in streams:
+        plan, _ = B._try_parse_stream(s)
+        if plan is None:
+            raise AssertionError("a stream meant for the device is not "
+                                 "eligible")
+        lanes += [seg for kind, seg in plan if kind == "lane"]
+    return lanes
+
+
+def _dict_refs(cmds, ncmd) -> int:
+    """Commands whose distance reaches past the output so far, counting
+    copies at their copy length (exact up to the first dictionary
+    reference, so nonzero exactly when the lane has one)."""
+    c = cmds[:ncmd].astype("int64")
+    ins_before = c[:, 0].cumsum()
+    cpy_before = c[:, 1].cumsum() - c[:, 1]
+    return int((c[:, 2] > ins_before + cpy_before).sum())
+
+
+def _decode_compare(lanes, dev, max_steps=None, what=""):
+    """decode_step against batch_decode_ref on `lanes` (all seven
+    outputs and the step counts).  Returns the kernel's outputs."""
+    import torch
+
+    from brotli_tpu_torch.decode import batch_gpu as B
+    from brotli_tpu_torch.ops import decode_gpu as D
+    args, cap, s_lit, s_cmd = B.lane_arrays(lanes, dev)
+    cap = cap if max_steps is None else max_steps
+    n = len(lanes)
+    ks = torch.zeros(n, dtype=torch.int32, device=dev)
+    rs = torch.zeros(n, dtype=torch.int32, device=dev)
+    got = D.batch_decode_device(*args, cap, s_lit, s_cmd, steps_out=ks)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = D.batch_decode_ref(*args, cap, s_lit, s_cmd, steps_out=rs)
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    for name, g, w in zip(("lits", "nlit", "cmds", "ncmd", "end_bit",
+                           "status", "cache", "steps"),
+                          list(got) + [ks], list(want) + [rs]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"decode_step {what}: kernel != "
+                                 f"batch_decode_ref in {name} "
+                                 f"({int((g != w).sum())} values differ)")
+    return got, ks, args, (cap, s_lit, s_cmd), plain_ms
+
+
+def _decode_timing(got, steps, args, sizes, per_step, reps=15):
+    """decode_step's kernel ms (CUDA events, median of `reps`) and bound
+    on `args`: the stream bytes the lanes read and the literals and
+    commands they write, against this run's steps times `per_step`, the
+    fewest instructions a step of the kernel executes (sass_step_floor)."""
+    from brotli_tpu_torch.ops import decode_gpu as D
+    ms = _median_ms(lambda: D.batch_decode_device(*args, *sizes), reps)
+    bit0 = args[1].long()
+    read = int(((got[4].long() + 7) // 8 - bit0 // 8).sum())
+    nlit, ncmd = int(got[1].long().sum()), int(got[3].long().sum())
+    nbytes = read + nlit + 12 * ncmd
+    nsteps = int(steps.long().sum())
+    nops = per_step * nsteps
+    bound_ms, by = _bound(nbytes, nops)
+    return ms, bound_ms, by, (f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} G "
+                              f"instructions: {per_step} a step x {nsteps} "
+                              "steps")
+
+
+def decode_kernel_phase(corpus, dev, enc, per_step):
+    """decode_step against its plain version on 64 lanes of <= 8 KiB from
+    every stream source, at the full step cap and at a small one;
+    returns the kernel's and the plain version's ms and the bound on
+    these lanes."""
+    import numpy as np
+
+    from brotli_tpu_torch import compress_fast, compress_gpu
+    from brotli_tpu_torch.ops import decode_gpu as D
+    rng = np.random.default_rng(SEED + 3)
+
+    def piece(n, span=DECODE_SPAN):
+        off = int(rng.integers(0, span - n))
+        return corpus[off:off + n]
+
+    # 8 KiB slices of all three parts; shorter ones of the repo text (a
+    # short slice of the records part is stored uncompressed)
+    streams = [compress_fast(piece(8192), lgwin=22, quality=1, device=dev)
+               for _ in range(24)]
+    streams += [enc(piece(8192), 3) for _ in range(24)]
+    streams += [enc(piece(int(rng.integers(1024, 8192)), DECODE_SPAN // 3),
+                    3) for _ in range(12)]
+    streams += [compress_fast(piece(int(rng.integers(1024, 8192)),
+                                    DECODE_SPAN // 3),
+                              lgwin=22, quality=1, device=dev)
+                for _ in range(2)]
+    with open(os.path.join(ROOT, "brotli_tpu_torch", "data",
+                           "dictionary.bin"), "rb") as f:
+        d = f.read()
+    dict_at = len(streams)
+    streams.append(compress_gpu(d[20000:21000] + d[60000:61000], quality=3,
+                                device=dev))
+    # flipped bits: the symbol data after the header XORed with seeded
+    # random bytes (the header, and so the lane, is unchanged)
+    flip_at = len(streams)
+    base = enc(piece(8192), 3)
+    (lane,) = _lanes_of([base])
+    cut = lane.bit0 // 8 + 16
+    noise = rng.integers(0, 256, len(base) - cut, dtype=np.uint8)
+    streams.append(base[:cut] + (np.frombuffer(base[cut:], np.uint8)
+                                 ^ noise).tobytes())
+    lanes = _lanes_of(streams)
+    if len(lanes) != 64:
+        raise AssertionError(f"decode kernel phase: {len(lanes)} lanes")
+    got, steps, args, sizes, plain_ms = _decode_compare(lanes, dev,
+                                                        what="64 lanes")
+    cap = sizes[0]
+    status = got[5].cpu().numpy()
+    refs = _dict_refs(got[2][dict_at].cpu().numpy(), int(got[3][dict_at]))
+    if status[flip_at] == D.PH_DONE or refs == 0 or \
+            (status == D.PH_DONE).sum() != 63:
+        raise AssertionError(f"decode kernel phase: statuses {status}, "
+                             f"{refs} dictionary references")
+    small = int(steps.float().median()) // 2
+    got2, _, _, _, _ = _decode_compare(lanes, dev, max_steps=small,
+                                       what=f"max_steps {small}")
+    cut_lanes = int((got2[5] < D.PH_DONE).sum())
+    if cut_lanes == 0:
+        raise AssertionError("decode kernel phase: no lane hit the cap")
+    ms, bound_ms, by, work = _decode_timing(got, steps, args, sizes,
+                                            per_step)
+    log(f"kernel decode_step: equal to batch_decode_ref in all seven "
+        f"outputs on 64 lanes of <= 8 KiB (cap {cap}: 63 done, the "
+        f"flipped lane falls back with status {status[flip_at]}, the "
+        f"dictionary lane has static-dictionary references; steps per lane "
+        f"{int(steps.min())}..{int(steps.max())}) and at cap {small} "
+        f"({cut_lanes} lanes cut); kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({by}: {work})")
+    return dict(lanes64_ms=ms, lanes64_plain_ms=plain_ms,
+                lanes64_bound_ms=bound_ms)
+
+
+def decode_path_phase(corpus, dev, enc, per_step):
+    """decompress_batch_gpu on the serving, multi-round and fallback
+    batches, then decode_step against its plain version on the serving
+    batch's lanes; returns the kernel's and the plain version's ms and
+    the bound there, and the launches of decode_step on the path."""
+    import numpy as np
+    import torch
+
+    from brotli_tpu_torch import compress_fast, decompress_batch_gpu
+    from brotli_tpu_torch.decode import batch_gpu as B
+    from brotli_tpu_torch.ops import decode_gpu as D
+
+    t0 = time.perf_counter()
+    stride = (DECODE_SPAN - SERVE_BYTES) // (SERVE_STREAMS - 1)
+    serve_in = [corpus[k * stride:k * stride + SERVE_BYTES]
+                for k in range(SERVE_STREAMS)]
+    serve = [compress_fast(p, lgwin=22, quality=1, device=dev)
+             if k % 2 == 0 else enc(p, 3) for k, p in enumerate(serve_in)]
+    stride = (DECODE_SPAN - MULTI_BYTES) // (MULTI_STREAMS - 1)
+    multi_in = [corpus[k * stride:k * stride + MULTI_BYTES]
+                for k in range(MULTI_STREAMS)]
+    multi = [compress_fast(p, lgwin=22, quality=1, device=dev)
+             for p in multi_in]
+    text_span = DECODE_SPAN // 3   # the repo-text part
+    stride = (text_span - SERVE_BYTES) // (FALLBACK_STREAMS - 1)
+    fall_in = [corpus[k * stride:k * stride + SERVE_BYTES]
+               for k in range(FALLBACK_STREAMS)]
+    fall = [enc(p, 11) for p in fall_in]
+    for s in fall:
+        if B._try_parse_stream(s)[0] is not None:
+            raise AssertionError("a q11 fallback stream is device-eligible")
+    log(f"decode path: streams made in {time.perf_counter() - t0:.1f} s "
+        f"(serving {sum(map(len, serve))} bytes, multi-round "
+        f"{sum(map(len, multi))}, fallback {sum(map(len, fall))})")
+
+    # the device wrapper, timed with CUDA events; the host waits from
+    # its launch to the end of the kernel
+    run = B.batch_decode_device
+    rounds = []
+
+    def timed(*args, **kw):
+        n = args[0].shape[0]
+        steps = torch.zeros(n, dtype=torch.int32, device=args[0].device)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        out = run(*args, steps_out=steps, **kw)
+        b.record()
+        b.synchronize()
+        rounds.append(dict(lanes=n, ms=a.elapsed_time(b),
+                           wait_s=time.perf_counter() - t,
+                           steps=steps.cpu().numpy()))
+        return out
+
+    decompress_batch_gpu(serve[:4], device=dev)  # warm: load, first launch
+    B.batch_decode_device = timed
+    launches = 0
+    try:
+        for what, streams, inputs, want_dev in (
+                ("serving", serve, serve_in, SERVE_STREAMS),
+                ("multi-round", multi, multi_in, MULTI_STREAMS),
+                ("fallback", fall, fall_in, 0)):
+            rounds.clear()
+            D.LAUNCHES["decode_step"] = 0
+            t = time.perf_counter()
+            outs, n_dev = decompress_batch_gpu(streams, device=dev)
+            wall = time.perf_counter() - t
+            n_launch = D.LAUNCHES["decode_step"]
+            if outs != inputs:
+                raise AssertionError(f"decode {what}: outputs differ")
+            if n_dev != want_dev or n_launch != len(rounds):
+                raise AssertionError(f"decode {what}: n_device {n_dev}, "
+                                     f"{n_launch} launches in "
+                                     f"{len(rounds)} rounds")
+            launches += n_launch
+            wait = sum(r["wait_s"] for r in rounds)
+            per_round = ", ".join(
+                f"{r['ms']:.3f} ms on {r['lanes']} lanes (steps per lane "
+                f"mean {r['steps'].mean():.0f}, max {r['steps'].max()})"
+                for r in rounds) or "no device round"
+            log(f"path decode {what}: {sum(map(len, inputs)) / wall / 1e6:.2f}"
+                f" MB/s decoded ({len(streams)} streams, "
+                f"{sum(map(len, inputs))} bytes, wall {wall:.3f} s), "
+                f"n_device {n_dev}, rounds: {per_round}; device-wait share "
+                f"{wait / wall:.4f}")
+    finally:
+        B.batch_decode_device = run
+    _profile_decode(serve, dev)
+
+    # the kernel against its plain version on the serving batch's lanes,
+    # with the arrays, step cap and buffer sizes the path gave it
+    t = time.perf_counter()
+    lanes = _lanes_of(serve)
+    got, steps, args, sizes, plain_ms = _decode_compare(
+        lanes, dev, what="serving batch")
+    status = got[5].cpu().numpy()
+    if (status != D.PH_DONE).any():
+        raise AssertionError("decode_step: a serving lane did not finish")
+    ms, bound_ms, by, work = _decode_timing(got, steps, args, sizes,
+                                            per_step)
+    log(f"kernel decode_step: equal to batch_decode_ref in all seven "
+        f"outputs and the step counts on the serving batch ({len(lanes)} "
+        f"lanes, L {args[0].shape[1]}, cap {sizes[0]}, s_lit {sizes[1]}, "
+        f"s_cmd {sizes[2]}; steps per lane mean "
+        f"{float(steps.float().mean()):.0f} max {int(steps.max())}); "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms ({by}: {work}; {time.perf_counter() - t:.1f} s)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                max_abs_err=0), launches
+
+
+def _profile_decode(streams, dev, rows=10):
+    """Where one serving-batch call spends its host time: functions by
+    own time (cProfile)."""
+    import cProfile
+    import pstats
+
+    from brotli_tpu_torch import decompress_batch_gpu
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    decompress_batch_gpu(streams, device=dev)
+    pr.disable()
+    log(f"profile decode serving: wall {time.perf_counter() - t0:.3f} s "
+        "under cProfile; host functions by own time:")
+    st = pstats.Stats(pr)
+    for (fname, line, func), (_, ncalls, tt, ct, _) in sorted(
+            st.stats.items(), key=lambda kv: -kv[1][2])[:rows]:
+        where = os.path.relpath(fname, ROOT) if fname.startswith(ROOT) \
+            else fname
+        log(f"  {tt:8.3f} s own {ct:8.3f} s cum {ncalls:6d} calls  "
+            f"{where}:{line}({func})")
+
+
+def decode_cpu_check(corpus, dev, enc):
+    from brotli_tpu_torch import compress_fast, decompress_batch_gpu
+    stride = (DECODE_SPAN - 4096) // 31
+    pieces = [corpus[k * stride:k * stride + 4096] for k in range(32)]
+    streams = [compress_fast(p, lgwin=22, quality=1, device=dev)
+               if k % 2 == 0 else enc(p, 3) for k, p in enumerate(pieces)]
+    t0 = time.perf_counter()
+    a, b = decompress_batch_gpu(streams, device=dev), \
+        decompress_batch_gpu(streams, device="cpu")
+    if a != b or a[0] != pieces or a[1] != 32:
+        raise AssertionError("decompress_batch_gpu: card and CPU differ")
+    log(f"cpu check decompress_batch_gpu: card == cpu on 32 streams of "
+        f"4 KiB, n_device {a[1]} ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -475,20 +936,31 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    build_all()
+    ds_lib = build_all()
     log(f"build wall: {time.perf_counter() - t0:.1f} s")
+    per_step, n_insns = sass_step_floor(ds_lib)
+    log(f"sass decode_step_kernel: {n_insns} instructions; one trip of the "
+        f"step loop executes at least {per_step}")
     corpus = make_corpus(CORPUS_MIB, SEED)
     log(f"corpus: {len(corpus)} bytes, seed {SEED}")
+
+    enc = _native_encoder()
 
     t0 = time.perf_counter()
     timings = kernel_phase(corpus, dev)
     mr_timing = match_rounds_phase(corpus, dev)
+    sp_timings = step_probe_phase(dev)
+    ds_lanes64 = decode_kernel_phase(corpus, dev, enc, per_step)
     log(f"kernel phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = path_phase(corpus, dev)
     log(f"path phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    ds_serving, ds_launches = decode_path_phase(corpus, dev, enc, per_step)
+    log(f"decode path phase wall: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     cpu_check(corpus, dev)
+    decode_cpu_check(corpus, dev, enc)
     log(f"cpu check wall: {time.perf_counter() - t0:.1f} s")
     profile_phase(corpus, dev)
 
@@ -510,6 +982,15 @@ def main() -> int:
     kernels.append(dict(name="match_rounds", route="cuda", source=MR_SRC,
                         replaces=MR_REPLACES, launches=n, library_ms=None,
                         **mr_timing))
+    if ds_launches == 0:
+        raise AssertionError("decode_step: no launch on its path")
+    kernels.append(dict(name="decode_step", route="cuda", source=DS_SRC,
+                        replaces=DS_REPLACES, launches=ds_launches,
+                        library_ms=None, **ds_serving, **ds_lanes64))
+    for reads, t in sp_timings.items():
+        kernels.append(dict(name=f"step_probe reads={reads}", route="cuda",
+                            source=DS_SRC, replaces=SP_REPLACES,
+                            library_ms=None, **t))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""brotli_tpu_torch on the card: the CUDA kernels (fold, match_rounds)
-against their plain versions, and the compress paths on CUDA against
-the CPU paths.
+"""brotli_tpu_torch on the card: the CUDA kernels (fold, match_rounds,
+decode_step, step_probe) against their plain versions, and the compress
+and batch-decode paths on CUDA against the CPU paths.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is
 false.  On a machine with a card:
@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from brotli_tpu_torch import compress_fast, compress_gpu
+from brotli_tpu_torch import compress_fast, compress_gpu, decompress_batch_gpu
+from brotli_tpu_torch.decode import batch_gpu as B
+from brotli_tpu_torch.ops import decode_gpu as D
 from brotli_tpu_torch.ops import fold_cuda as F
 from brotli_tpu_torch.ops import match_rounds_cuda as MR
 
@@ -114,3 +116,83 @@ def test_max_device_card_matches_cpu(quality):
                        max_device=True, device=dev)
     assert got == compress_gpu(data, quality=quality, span=1 << 16,
                                max_device=True, device="cpu")
+
+
+def _decode_streams(count: int, seed: int):
+    """compress_fast streams of seeded slices (up to 4 KiB) of in-repo
+    source text, the second one with its symbol data after the header
+    replaced by random bytes (its lane falls back)."""
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "native", "decoder.cpp")
+    with open(path, "rb") as f:
+        text = f.read()
+    rng = np.random.default_rng(seed)
+    streams = []
+    for _ in range(count):
+        off = int(rng.integers(0, len(text) - 4096))
+        streams.append(compress_fast(
+            text[off:off + int(rng.integers(2048, 4096))], device="cpu"))
+    plan, _ = B._try_parse_stream(streams[1])
+    cut = plan[-1][1].bit0 // 8 + 16
+    streams[1] = streams[1][:cut] + rng.integers(
+        0, 256, len(streams[1]) - cut, dtype=np.uint8).tobytes()
+    return streams
+
+
+def test_decode_step_kernel_matches_ref():
+    dev = _card()
+    lanes = []
+    for s in _decode_streams(16, seed=40):
+        plan, _ = B._try_parse_stream(s)
+        lanes += [seg for kind, seg in plan if kind == "lane"]
+    assert len(lanes) == 16
+    args, max_steps, s_lit, s_cmd = B.lane_arrays(lanes, dev)
+    before = D.LAUNCHES.get("decode_step", 0)
+    steps = torch.zeros(16, dtype=torch.int32, device=dev)
+    got = D.batch_decode_device(*args, max_steps, s_lit, s_cmd,
+                                steps_out=steps)
+    assert D.LAUNCHES["decode_step"] == before + 1
+    ref_steps = torch.zeros_like(steps)
+    want = D.batch_decode_ref(*args, max_steps, s_lit, s_cmd,
+                              steps_out=ref_steps)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(steps, ref_steps)
+    # the plain version's graph replays on the card equal its eager run
+    # on the CPU
+    cpu_steps = torch.zeros(16, dtype=torch.int32)
+    on_cpu = D.batch_decode_ref(*[a.cpu() for a in args], max_steps, s_lit,
+                                s_cmd, steps_out=cpu_steps)
+    for w, c in zip(want, on_cpu):
+        assert torch.equal(w.cpu(), c)
+    assert torch.equal(ref_steps.cpu(), cpu_steps)
+    status = got[5].tolist()
+    assert status[1] != D.PH_DONE
+    assert status.count(D.PH_DONE) == 15
+
+
+@pytest.mark.parametrize("reads", [0, 1, 2])
+def test_step_probe_kernel_matches_ref(reads):
+    dev = _card()
+    rng = np.random.default_rng(reads)
+    tab = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31,
+                                        size=(128, 1056), dtype=np.int64)
+                           .astype(np.int32)).to(dev)
+    st = torch.arange(128, dtype=torch.int32, device=dev)[None, :]
+    before = D.LAUNCHES.get("step_probe", 0)
+    got = D.step_probe(tab, st, 64, reads)
+    assert D.LAUNCHES["step_probe"] == before + 1
+    assert torch.equal(got, D.step_probe_ref(tab, st, 64, reads))
+
+
+def test_decompress_batch_gpu_card_matches_cpu():
+    dev = _card()
+    streams = _decode_streams(9, seed=50)
+    del streams[1]
+    before = D.LAUNCHES.get("decode_step", 0)
+    got = decompress_batch_gpu(streams, device=dev)
+    assert D.LAUNCHES["decode_step"] == before + 1
+    assert got == decompress_batch_gpu(streams, device="cpu")
+    assert got[1] == 8

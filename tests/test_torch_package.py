@@ -19,7 +19,10 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
         "import brotli_tpu_torch.encode.gpu_path, "
         "brotli_tpu_torch.encode.fast, brotli_tpu_torch.ops.parse, "
         "brotli_tpu_torch.ops.match_rounds_cuda, "
-        "brotli_tpu_torch.native_bridge, brotli_tpu_torch.ops.split\n"
+        "brotli_tpu_torch.native_bridge, brotli_tpu_torch.ops.split, "
+        "brotli_tpu_torch.ops.decode_gpu, "
+        "brotli_tpu_torch.decode.batch_gpu, "
+        "brotli_tpu_torch.decode.decoder\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'brotli_tpu' or "
         "m.startswith('brotli_tpu.'))\n"
@@ -74,6 +77,17 @@ def test_compress_gpu_without_device_raises_when_cuda_is_absent(
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_decompress_batch_gpu_without_device_raises_when_cuda_is_absent(
+        monkeypatch):
+    from brotli_tpu_torch import decompress_batch_gpu
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decompress_batch_gpu([b"\x3b"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decompress_batch_gpu([b"\x3b"], device="cuda")
+    assert decompress_batch_gpu([b"\x3b"], device="cpu") == ([b""], 0)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -306,3 +306,109 @@ def test_native_resolve_and_pack_equal():
     jw, jt = jnb.pack_bits(bits, nbits)
     assert tt == jt
     np.testing.assert_array_equal(tw[:tt // 64 + 1], jw[:jt // 64 + 1])
+
+
+def test_decode_constants_equal():
+    for name in ("CMD_TO_INSERT_CODE", "CMD_TO_COPY_CODE",
+                 "DISTANCE_SHORT_CODE_INDEX", "DISTANCE_SHORT_CODE_DELTA"):
+        np.testing.assert_array_equal(getattr(TC, name), getattr(JC, name))
+    for name in ("NUM_DISTANCE_SHORT_CODES", "REPEAT_PREVIOUS_CODE_LENGTH",
+                 "REPEAT_ZERO_CODE_LENGTH"):
+        assert getattr(TC, name) == getattr(JC, name), name
+    for npostfix in range(4):
+        for ndirect in range(0, 121, 8):
+            for bits in (24, 30):
+                assert TC.distance_alphabet_size(npostfix, ndirect, bits) \
+                    == JC.distance_alphabet_size(npostfix, ndirect, bits)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_prefix_reader_equal(seed):
+    """read_prefix_code (and the PrefixDecoder it builds on) over the
+    port's own write_prefix_code output: simple codes of 1-4 symbols and
+    complex codes with RLE, read back by both packages."""
+    from brotli_tpu.core.bitio import BitReader as JR
+    from brotli_tpu.core.prefix import PrefixDecoder as JPD
+    from brotli_tpu.core.prefix import check_complete
+    from brotli_tpu.core.prefix import read_prefix_code
+    rng = np.random.default_rng(100 + seed)
+    for size in (4, 26, 256, 704):
+        for shape in ("sparse", "dense"):
+            hist = np.zeros(size, np.int64)
+            if shape == "sparse":
+                hist[rng.integers(0, size, rng.integers(1, 5))] = \
+                    rng.integers(1, 100)
+            else:
+                hist = rng.integers(0, 50, size) * (rng.random(size) < 0.6)
+                hist[0] += 1
+            lengths = THuf.build_huffman_lengths(hist)
+            w = TBIO.BitWriter()
+            w.write(5, 3)
+            TPre.write_prefix_code(w, lengths)
+            stream = w.getvalue() + bytes(8)
+            tr, jr = TBIO.BitReader(stream), JR(stream)
+            tr.read(3)
+            jr.read(3)
+            got = TPre.read_prefix_code(tr, size)
+            np.testing.assert_array_equal(got, read_prefix_code(jr, size))
+            assert tr.bit_pos == jr.bit_pos
+            assert TPre.check_complete(got) == check_complete(got)
+            syms = np.nonzero(got)[0]
+            np.testing.assert_array_equal(np.nonzero(lengths)[0], syms)
+            td, jd = TPre.PrefixDecoder(got), JPD(got)
+            assert td.single == jd.single and td.max_len == jd.max_len
+            if td.single < 0:
+                np.testing.assert_array_equal(td.sym_table, jd.sym_table)
+                np.testing.assert_array_equal(td.len_table, jd.len_table)
+    with pytest.raises(TBIO.NeedsMoreInput):
+        TBIO.BitReader(b"\x01").read(9)
+    with pytest.raises(ValueError):
+        TPre.PrefixDecoder(np.array([1, 1, 1]))
+
+
+def test_transforms_and_dict_len_tables_equal():
+    from brotli_tpu.core.dictionary import apply_transform
+    from brotli_tpu.ops.decode_tpu import _dict_len_tables as jlen
+    from brotli_tpu_torch.core.dictionary import apply_transform as tapply
+    from brotli_tpu_torch.ops.decode_gpu import _dict_len_tables as tlen
+    td, jd = tget_dict(), jget_dict()
+    words = [b"", b"a", b"hello", b"\xc3\xa9t\xc3\xa9", b"\xe2\x82\xacuro",
+             b"zZ\xf0\x9f\x98\x80x"]
+    # and seeded words of the dictionary itself, every length
+    rng = np.random.default_rng(9)
+    for length in range(4, 25):
+        for _ in range(3):
+            words.append(jd.word(length, int(rng.integers(
+                0, td.num_words(length)))))
+    for t in range(121):
+        for wd in words:
+            assert tapply(td, wd, t) == apply_transform(jd, wd, t), (t, wd)
+    for a, b in zip(tlen(), jlen()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_native_lane_walk_and_lz_execute_equal():
+    from brotli_tpu import compress
+    data = b"".join(tget_dict().data[i:i + 40] for i in range(0, 30000, 90))
+    for q in (2, 3, 9):
+        s = compress(data, quality=q)
+        a, b = tnb.parse_lane_header(s), jnb.parse_lane_header(s)
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    # insert 100, copy 30 at distance 7, insert 150, a dictionary word
+    # (word 5 of length 4 under transform 3), insert 150
+    rng = np.random.default_rng(2)
+    lits = rng.integers(0, 256, 400, dtype=np.uint8)
+    prefix = b"prefix bytes " * 10
+    word_id = (3 << int(tget_dict().size_bits_by_length[4])) + 5
+    max_dist = len(prefix) + 280
+    cmds = np.array([[100, 30, 7], [150, 4, max_dist + 1 + word_id],
+                     [150, 0, 0]], np.int32)
+    mlen = 430 + len(jget_dict().resolve(4, word_id))
+    for m in (mlen, mlen - 1):
+        got = tnb.lz_execute(prefix, lits, cmds, 3, 1 << 16, m)
+        assert got == jnb.lz_execute(prefix, lits, cmds, 3, 1 << 16, m)
+        assert (got is None) == (m != mlen)
