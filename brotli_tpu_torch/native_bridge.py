@@ -196,18 +196,33 @@ def _install_decoder_dictionary(lib) -> None:
         _ptr(lut0, U8P), _ptr(lut1, U8P))
 
 
+_table_mem = None   # the native decoder's 32 MiB table, once per process
+_decode_out = None  # pooled output buffer: a fresh multi-MB array pays a
+#                     page fault per 4 KiB of decoded output
+POOL_MAX = 1 << 26  # larger outputs get a buffer of their own
+
+
 def decode(data: bytes) -> bytes:
     """Native one-shot decode.  Raises ValueError(code) with code -1
-    (truncated) or -2 (corrupt)."""
+    (truncated) or -2 (corrupt).  The table and an output buffer of up
+    to POOL_MAX bytes are kept across calls."""
+    global _table_mem, _decode_out
     lib = get_lib()
-    table = np.zeros(1 << 23, dtype=np.int32)
+    if _table_mem is None:
+        _table_mem = np.zeros(1 << 23, dtype=np.int32)
     src = np.frombuffer(bytes(data), dtype=np.uint8)
     cap = 4 * len(src) + (1 << 16)
     while True:
-        out = np.empty(cap, dtype=np.uint8)
+        if cap <= POOL_MAX:
+            if _decode_out is None or len(_decode_out) < cap:
+                _decode_out = np.empty(max(cap, 1 << 22), dtype=np.uint8)
+            out = _decode_out
+            cap = len(out)
+        else:
+            out = np.empty(cap, dtype=np.uint8)
         r = lib.decode_native(
             _ptr(src, U8P), len(src), _ptr(out, U8P), cap,
-            U8P(), 0, 0, _ptr(table, I32P), len(table))
+            U8P(), 0, 0, _ptr(_table_mem, I32P), len(_table_mem))
         if r == -3:  # output buffer too small
             if cap >= 1 << 40:
                 raise MemoryError("decoded output exceeds 1 TiB")

@@ -179,7 +179,12 @@ def _invert(pos_s, packed_s, score_s=None):
 def _sort_v0(data, payload_values):
     """Stable sort by signed int32(v0); returns (v0_s, pos_s,
     *payloads_s) as int32."""
-    v0 = as_i32(u32_values(data))
+    return _sort_by_v0(as_i32(u32_values(data)), payload_values)
+
+
+def _sort_by_v0(v0, payload_values):
+    """Stable sort by the int32 key v0, payloads int64 holding u32;
+    returns (v0_s, pos_s, *payloads_s) as int32."""
     key_s, order = torch.sort(v0, stable=True)
     return (key_s, order.to(torch.int32),
             *[as_i32(v)[order] for v in payload_values])
@@ -188,12 +193,19 @@ def _sort_v0(data, payload_values):
 def _sort_v0v1(data, rounds: int):
     """Stable sort by unsigned (v0, v1) through one int64 key; returns
     (v0_s, v1_s, pos_s, *payloads_s) as int32, payloads v[2:rounds]."""
-    v = [u32_values_at(data, 4 * r) for r in range(max(rounds, 2))]
+    return _sort_by_v0v1([u32_values_at(data, 4 * r)
+                          for r in range(max(rounds, 2))])
+
+
+def _sort_by_v0v1(v):
+    """Stable sort by unsigned (v[0], v[1]) (int64 holding u32) through
+    one int64 key, the first biased by -2^31 so signed order is unsigned
+    order; returns (v0_s, v1_s, pos_s, *v[2:]_s) as int32."""
     key = ((v[0] - (1 << 31)) << 32) | v[1]
     _, order = torch.sort(key, stable=True)
     return (as_i32(v[0])[order], as_i32(v[1])[order],
             order.to(torch.int32),
-            *[as_i32(x)[order] for x in v[2:rounds]])
+            *[as_i32(x)[order] for x in v[2:]])
 
 
 def best_matches_exact_p(data: torch.Tensor, window_size: int,

@@ -1,0 +1,217 @@
+"""The radix-sort probes' primitives: CUDA kernels + wrappers.
+
+Counterparts of the six Pallas kernels of research/radix_probe.py and
+research/radix_probe2.py, the building blocks a counting sort on the
+device would be made of.  Each works on an int32 array of rows of 128
+lanes, `[rows, 128]`, contiguous:
+
+  gather_rows   take_along_axis(axis=0) inside each block of R rows
+  gather_lanes  take_along_axis(axis=1) inside each row
+  hist8         per 2048-row tile and lane, the count of x & 7 in 8 rows
+  run_copy      runs of rows from src to dst at the same offsets
+  cmpex3        three roll + min/max + select stages (s = 1, 2, 4) inside
+                each 2048-row tile
+
+On CUDA tensors each wrapper launches its kernel in csrc/radix_probe.cu
+(built with nvcc for sm_90a at first use, loaded with ctypes) or
+raises; on CPU tensors it runs its plain PyTorch version `*_ref`.
+Indices and offsets are taken to be in range, as the probes make them:
+gather_rows' in [0, R), gather_lanes' in [0, 128), run_copy's in
+[0, rows - run_rows].  LAUNCHES counts kernel launches, gather_rows'
+under "gather_rows_R<R>".
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..buildcache import CudaLibrary
+
+LANES = 128
+TILE = 2048   # rows of a hist8 / cmpex3 tile
+
+#: kernel launches by name; reset and read by callers that check a run
+#: went through the kernels
+LAUNCHES: dict[str, int] = {}
+
+
+def _bind(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.gather_rows_launch.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.gather_lanes_launch.argtypes = [vp, vp, vp, ci, vp]
+    lib.hist8_launch.argtypes = [vp, vp, ci, vp]
+    lib.run_copy_launch.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.cmpex3_launch.argtypes = [vp, vp, ci, vp]
+    for fn in (lib.gather_rows_launch, lib.gather_lanes_launch,
+               lib.hist8_launch, lib.run_copy_launch, lib.cmpex3_launch):
+        fn.restype = ci
+
+
+LIB = CudaLibrary("radix_probe", _bind)
+
+
+def _check_rows(name: str, *xs: torch.Tensor, multiple: int = 1) -> str:
+    """Raise unless every x is a contiguous int32 [rows, 128] tensor of
+    one shape on one device with rows a multiple of `multiple`; returns
+    the device type ("cpu" or "cuda")."""
+    x = xs[0]
+    if any(t.dtype != torch.int32 or t.dim() != 2 or t.shape != x.shape
+           or t.device != x.device or not t.is_contiguous() for t in xs) \
+            or x.shape[1] != LANES or x.shape[0] % multiple:
+        raise ValueError(f"{name}: want contiguous int32 [rows, {LANES}] "
+                         f"tensors of one shape on one device, rows a "
+                         f"multiple of {multiple}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type
+
+
+def _launch(name: str, fn, *args) -> None:
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def gather_rows_ref(x: torch.Tensor, idx: torch.Tensor,
+                    rows_per_block: int) -> torch.Tensor:
+    """out[b*R + i, l] = x[b*R + idx[b*R + i, l], l]: torch.gather on
+    the [blocks, R, 128] view."""
+    r = rows_per_block
+    xv = x.view(-1, r, LANES)
+    return torch.gather(xv, 1, idx.view(-1, r, LANES).long()).view(x.shape)
+
+
+def gather_lanes_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[r, l] = x[r, idx[r, l]]."""
+    return torch.gather(x, 1, idx.long())
+
+
+def hist8_ref(x: torch.Tensor) -> torch.Tensor:
+    """The TPU body's 256 equality sweeps over each 2048-row tile's low
+    byte, digit d's per-lane count accumulated into row d % 8 of the
+    tile's 8 output rows: int32 [8 * rows / 2048, 128]."""
+    d8 = (x & 0xFF).view(-1, TILE, LANES)
+    acc = torch.zeros((d8.shape[0], 8, LANES), dtype=torch.int32,
+                      device=x.device)
+    for d in range(256):
+        acc[:, d % 8] += (d8 == d).sum(1, dtype=torch.int32)
+    return acc.view(-1, LANES)
+
+
+def run_copy_ref(src: torch.Tensor, dst: torch.Tensor, offs: torch.Tensor,
+                 run_rows: int) -> torch.Tensor:
+    """dst[o:o + run_rows] = src[o:o + run_rows] for each offset o, in
+    order; returns dst."""
+    for o in offs.tolist():
+        dst[o:o + run_rows] = src[o:o + run_rows]
+    return dst
+
+
+def cmpex3_ref(x: torch.Tensor) -> torch.Tensor:
+    """Stages s = 1, 2, 4 inside each 2048-row tile: y = x rolled by s
+    rows (y[i] = x[i - s mod 2048]), x = min(x, y) where (i // s) % 2 ==
+    0, else max(x, y), i the row inside the tile."""
+    t = x.view(-1, TILE, LANES)
+    i = torch.arange(TILE, device=x.device)[None, :, None]
+    for s in (1, 2, 4):
+        y = torch.roll(t, s, dims=1)
+        t = torch.where((i // s) % 2 == 0, torch.minimum(t, y),
+                        torch.maximum(t, y))
+    return t.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                rows_per_block: int) -> torch.Tensor:
+    """take_along_axis(axis=0) inside each block of `rows_per_block`
+    rows (research/radix_probe.py P2, radix_probe2.py Q1)."""
+    r = int(rows_per_block)
+    if r < 1:
+        raise ValueError("gather_rows: rows_per_block must be >= 1")
+    if _check_rows("gather_rows", x, idx, multiple=r) == "cpu":
+        return gather_rows_ref(x, idx, r)
+    lib = LIB.get()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _launch(f"gather_rows_R{r}", lib.gather_rows_launch, x.data_ptr(),
+                idx.data_ptr(), out.data_ptr(), x.shape[0], r)
+    return out
+
+
+def gather_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """take_along_axis(axis=1) inside each row (research/radix_probe.py
+    P2, gather1_kernel)."""
+    if _check_rows("gather_lanes", x, idx) == "cpu":
+        return gather_lanes_ref(x, idx)
+    lib = LIB.get()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _launch("gather_lanes", lib.gather_lanes_launch, x.data_ptr(),
+                idx.data_ptr(), out.data_ptr(), x.shape[0])
+    return out
+
+
+def hist8(x: torch.Tensor) -> torch.Tensor:
+    """Per 2048-row tile and lane, the count of rows with x & 7 == q in
+    output row 8 * tile + q (research/radix_probe.py P3, the function
+    hist_kernel's body means)."""
+    if _check_rows("hist8", x, multiple=TILE) == "cpu":
+        return hist8_ref(x)
+    lib = LIB.get()
+    out = torch.empty((8 * x.shape[0] // TILE, LANES), dtype=torch.int32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("hist8", lib.hist8_launch, x.data_ptr(), out.data_ptr(),
+                x.shape[0])
+    return out
+
+
+def run_copy(src: torch.Tensor, dst: torch.Tensor, offs: torch.Tensor,
+             run_rows: int) -> torch.Tensor:
+    """Copy rows [o, o + run_rows) of src into dst for each offset o of
+    the int32 vector `offs` (research/radix_probe.py P4); dst is the
+    caller's and is returned.  Rows no run covers keep their value."""
+    dev = _check_rows("run_copy", src, dst)
+    if offs.dtype != torch.int32 or offs.dim() != 1 \
+            or offs.device != src.device or run_rows < 1 \
+            or run_rows > src.shape[0]:
+        raise ValueError("run_copy: offs must be an int32 vector on the "
+                         "rows' device and 1 <= run_rows <= rows")
+    if dev == "cpu":
+        return run_copy_ref(src, dst, offs, run_rows)
+    if src.data_ptr() % 16 or dst.data_ptr() % 16:
+        raise ValueError("run_copy: src and dst must be 16-byte aligned")
+    lib = LIB.get()
+    offs = offs.contiguous()
+    if offs.numel():
+        with torch.cuda.device(src.device):
+            _launch("run_copy", lib.run_copy_launch, src.data_ptr(),
+                    dst.data_ptr(), offs.data_ptr(), offs.numel(), run_rows)
+    return dst
+
+
+def cmpex3(x: torch.Tensor) -> torch.Tensor:
+    """Three compare-exchange stages inside each 2048-row tile
+    (research/radix_probe.py P5); see cmpex3_ref."""
+    if _check_rows("cmpex3", x, multiple=TILE) == "cpu":
+        return cmpex3_ref(x)
+    lib = LIB.get()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _launch("cmpex3", lib.cmpex3_launch, x.data_ptr(), out.data_ptr(),
+                x.shape[0])
+    return out

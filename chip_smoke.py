@@ -4,12 +4,13 @@
     python3 chip_smoke.py            # the full run, on one card
 
 Builds the native runtime (native/*.cpp, g++) and the CUDA kernels
-(brotli_tpu_torch/csrc/fold.cu, match_rounds.cu and decode_step.cu,
-nvcc for sm_90a) side by side, reads the fewest instructions one step
-of decode_step executes from its SASS (cuobjdump; the operation count
-of its bound), makes a 32 MiB corpus from a seed (text files of the
-repo that the port leaves unchanged, zipf-distributed words, structured
-records with noise, slowly varying integers, random bytes), then:
+(brotli_tpu_torch/csrc/fold.cu, match_rounds.cu, decode_step.cu and
+radix_probe.cu, nvcc for sm_90a) side by side, reads the fewest
+instructions one step of decode_step executes from its SASS (cuobjdump;
+the operation count of its bound), makes a 32 MiB corpus from a seed
+(brotli_tpu_torch/research/corpus.py: text files of the repo that the
+port leaves unchanged, zipf-distributed words, structured records with
+noise, slowly varying integers, random bytes), then:
 
   kernel phase  each fold configuration on 4,718,592 sorted rows of
                 the corpus (the row of one 512 KiB span at lgwin 22),
@@ -51,6 +52,16 @@ records with noise, slowly varying integers, random bytes), then:
                 device="cpu" byte for byte on a 1 MiB prefix, and
                 decompress_batch_gpu on the card equals device="cpu" on
                 32 streams of 4 KiB
+  radix phase   the radix probes (brotli_tpu_torch/research/
+                radix_probe.py and radix_probe2.py, counterparts of
+                research/radix_probe*.py) run on a 5 MiB corpus from the
+                seed, their launch counters set to 0 just before and
+                read just after (each primitive must have launched);
+                prints both result dicts; then each primitive
+                (gather_rows at R = 8 ... 8192, gather_lanes, hist8,
+                run_copy, cmpex3) against its plain version at the
+                probes' shape, int32 [40960, 128]: kernel, plain and
+                torch.gather ms and the bound
   profile       where one q9 call on 8 MiB spends its time: host
                 functions by own time (cProfile), device kernels by
                 device time and the device's idle share (torch.profiler)
@@ -65,7 +76,6 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
-import glob
 import json
 import os
 import re
@@ -87,13 +97,14 @@ MR_REPLACES = "brotli_tpu/ops/pallas_match.py:62"
 DS_SRC = "brotli_tpu_torch/csrc/decode_step.cu"
 DS_REPLACES = "brotli_tpu/ops/decode_tpu.py:450"
 SP_REPLACES = "research/decode_step_kernel_probe.py:94"
+RP_SRC = "brotli_tpu_torch/csrc/radix_probe.cu"
+RADIX_MIB = 5               # the probes' N = 5,242,880 bytes
 PROBE_LANES, PROBE_STEPS = 128, 2048
 DECODE_SPAN = 24 << 20      # the corpus's repo text, prose and records
 SERVE_STREAMS, SERVE_BYTES = 1024, 1 << 16
 MULTI_STREAMS, MULTI_BYTES = 8, 8 << 20
 FALLBACK_STREAMS = 16
 SHARD = 1 << 22             # compress_fast's shard
-CORPUS_DOCS = ["PAPER.md", "PAPERS.md", "SNIPPETS.md", "SURVEY.md"]
 CORPUS_MIB = 32
 SEED = 20261016
 
@@ -123,10 +134,11 @@ def card_line() -> str:
 
 
 def build_all() -> str:
-    """Native runtime and the three CUDA kernel sources, compiled side by
+    """Native runtime and the four CUDA kernel sources, compiled side by
     side; returns the path of the built decode_step library."""
     from brotli_tpu_torch import native_bridge as nb
-    from brotli_tpu_torch.ops import decode_gpu, fold_cuda, match_rounds_cuda
+    from brotli_tpu_torch.ops import (decode_gpu, fold_cuda,
+                                      match_rounds_cuda, radix_cuda)
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -135,13 +147,15 @@ def build_all() -> str:
 
     builds = {"native": nb.build, "fold.cu": fold_cuda.LIB.build,
               "match_rounds.cu": match_rounds_cuda.LIB.build,
-              "decode_step.cu": decode_gpu.LIB.build}
+              "decode_step.cu": decode_gpu.LIB.build,
+              "radix_probe.cu": radix_cuda.LIB.build}
     with ThreadPoolExecutor(len(builds)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in builds.items()}
         done = {k: f.result() for k, f in futs.items()}
     log("build: " + ", ".join(f"{k} {t:.1f} s" for k, (_, t) in
                               done.items()))
-    for k in ("fold.cu", "match_rounds.cu", "decode_step.cu"):
+    for k in ("fold.cu", "match_rounds.cu", "decode_step.cu",
+              "radix_probe.cu"):
         for ln in done[k][0][1].splitlines():
             if "registers" in ln or ("spill" in ln and
                                      " 0 bytes spill stores" not in ln):
@@ -206,42 +220,6 @@ def sass_step_floor(lib_path: str, kernel: str = "decode_step_kernel"):
                 dist[v] = dist[u] + 1
                 queue.append(v)
     raise AssertionError(f"sass: no path around {kernel}'s loop")
-
-
-def make_corpus(mib: int, seed: int):
-    """`mib` MiB from the seed: 1/4 repo text, 1/4 zipf words, 1/4
-    records with noise, 1/8 slowly varying int32, 1/8 random bytes."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    total = mib << 20
-    q = total // 8
-    # files the port leaves unchanged, so the corpus is the same at
-    # every commit of the port
-    files = sorted(glob.glob(os.path.join(ROOT, "native", "*.cpp"))
-                   + [os.path.join(ROOT, f) for f in CORPUS_DOCS]
-                   + glob.glob(os.path.join(ROOT, "brotli_tpu", "**",
-                                            "*.py"), recursive=True))
-    text = b"".join(open(f, "rb").read() for f in files)
-    if len(text) < 1 << 16:
-        raise RuntimeError("chip_smoke: the repo's text files are missing")
-    lines = text.splitlines(keepends=True)
-    pick = rng.integers(0, len(lines), size=2 * q // 8)
-    repo = (text + b"".join(lines[i] for i in pick))[:2 * q]
-    words = [bytes(rng.integers(97, 123, size=rng.integers(2, 10),
-                                dtype=np.uint8)) for _ in range(3000)]
-    zipf = rng.zipf(1.2, size=2 * q // 3) % len(words)
-    prose = b" ".join(words[i] for i in zipf)[:2 * q]
-    recs = np.tile(rng.integers(0, 256, size=(64, 64), dtype=np.uint8),
-                   (2 * q // 4096 + 1, 1))
-    recs = recs[rng.permutation(len(recs))].ravel()[:2 * q]
-    noise = rng.integers(0, len(recs), size=len(recs) // 16)
-    recs[noise] = rng.integers(0, 256, size=len(noise), dtype=np.uint8)
-    ints = np.cumsum(rng.integers(-3, 4, size=q // 4)).astype("<i4")
-    rand = rng.integers(0, 256, size=q, dtype=np.uint8)
-    corpus = repo + prose + recs.tobytes() + ints.tobytes() + rand.tobytes()
-    if len(corpus) != total:
-        raise RuntimeError(f"chip_smoke: corpus is {len(corpus)} bytes")
-    return corpus
 
 
 def _median_ms(fn, reps):
@@ -628,6 +606,102 @@ def step_probe_phase(dev):
     return results
 
 
+def radix_phase(dev):
+    """The radix probes' own run (both probes' run(), launch counts set
+    to 0 just before and read just after), then each primitive against
+    its plain version at the probes' shapes: v0 of a 5 MiB corpus as
+    int32 [40960, 128], every R of the gathers.  Returns the kernels'
+    entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from brotli_tpu_torch.ops import radix_cuda as RC
+    from brotli_tpu_torch.research import radix_probe as RP
+    from brotli_tpu_torch.research import radix_probe2 as RP2
+    from brotli_tpu_torch.research.corpus import make_corpus
+    data = make_corpus(RADIX_MIB, SEED)
+    RC.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    probe = RP.run(data, dev)
+    probe2 = RP2.run(data, dev)
+    torch.cuda.synchronize()
+    launches = dict(RC.LAUNCHES)
+    log(f"radix probes: run in {time.perf_counter() - t0:.1f} s, launches "
+        f"{json.dumps(launches)}")
+    log(json.dumps({"radix_probe": probe}))
+    log(json.dumps({"radix_probe2": probe2}))
+
+    ins = RP.inputs(data, dev)
+    x, offs = ins["x"], ins["offs"]
+    rows, n = x.shape[0], x.numel()
+    # union of the runs' rows: what run_copy must read and write
+    covered = np.zeros(rows, bool)
+    for o in offs.cpu().tolist():
+        covered[o:o + RP.RUN_ROWS] = True
+    n_cov = int(covered.sum())
+    # (name, launch key, replaces, kernel, plain, library call or None,
+    #  bytes, integer ops)
+    sites = []
+    for r, where, idx in (
+            [(r, "research/radix_probe.py:102", ins["idx"][r])
+             for r in RP.GATHER_ROWS]
+            + [(r, "research/radix_probe2.py:70",
+                RP.block_index(rows, r, r, dev)) for r in RP2.GATHER_ROWS]):
+        xv, iv = x.view(-1, r, 128), idx.view(-1, r, 128).long()
+        sites.append((f"gather_rows R={r}", f"gather_rows_R{r}", where,
+                      lambda r=r, idx=idx: RC.gather_rows(x, idx, r),
+                      lambda r=r, idx=idx: RC.gather_rows_ref(x, idx, r),
+                      lambda xv=xv, iv=iv: torch.gather(xv, 1, iv),
+                      12 * n, 3 * n))
+    il, il64 = ins["idx_lanes"], ins["idx_lanes"].long()
+    sites.append(("gather_lanes", "gather_lanes",
+                  "research/radix_probe.py:161",
+                  lambda: RC.gather_lanes(x, il),
+                  lambda: RC.gather_lanes_ref(x, il),
+                  lambda: torch.gather(x, 1, il64), 12 * n, 2 * n))
+    sites.append(("hist8", "hist8", "research/radix_probe.py:200",
+                  lambda: RC.hist8(x), lambda: RC.hist8_ref(x), None,
+                  4 * n + 4 * 8 * n // 2048, 2 * n + 32 * 8 * n // 2048))
+    dst_k, dst_r = torch.zeros_like(x), torch.zeros_like(x)
+    sites.append(("run_copy", "run_copy", "research/radix_probe.py:241",
+                  lambda: RC.run_copy(x, dst_k, offs, RP.RUN_ROWS),
+                  lambda: RC.run_copy_ref(x, dst_r, offs, RP.RUN_ROWS),
+                  None, 2 * 512 * n_cov + 4 * len(offs), 0))
+    sites.append(("cmpex3", "cmpex3", "research/radix_probe.py:279",
+                  lambda: RC.cmpex3(x), lambda: RC.cmpex3_ref(x), None,
+                  8 * n, 12 * n))
+    kernels = []
+    for name, key, where, kern, plain, lib, nbytes, nops in sites:
+        if launches.get(key, 0) == 0:
+            raise AssertionError(f"{name}: no launch in the probes' run")
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel != plain version "
+                                 f"({int((got != want).sum())} values "
+                                 "differ)")
+        err = int((got.long() - want.long()).abs().max())
+        ms = _median_ms(kern, 15)
+        plain_ms = _median_ms(plain, 15)
+        lib_ms = _median_ms(lib, 15) if lib is not None else None
+        bound_ms, by = _bound(nbytes, nops)
+        kernels.append(dict(name=name, route="cuda", source=RP_SRC,
+                            replaces=where, launches=launches[key],
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=by,
+                            library_ms=lib_ms))
+        lib_txt = (f"torch.gather {lib_ms:.4f} ms" if lib is not None else
+                   "library none: no single PyTorch call computes it")
+        log(f"kernel {name}: equal to its plain version on [{rows}, 128] "
+            f"int32; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"{lib_txt}, bound {bound_ms:.5f} ms ({by}: "
+            f"{nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} M int ops), "
+            f"{launches[key]} launches in the probes' run")
+    log(f"radix run_copy: {n_cov} of {rows} rows covered by "
+        f"{len(offs)} runs of {RP.RUN_ROWS}")
+    return kernels
+
+
 def _lanes_of(streams):
     from brotli_tpu_torch.decode import batch_gpu as B
     lanes = []
@@ -930,6 +1004,7 @@ def main() -> int:
         print("chip_smoke: brotli_tpu_torch is not beside this script",
               file=sys.stderr)
         return 2
+    from brotli_tpu_torch.research.corpus import make_corpus
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -962,6 +1037,9 @@ def main() -> int:
     cpu_check(corpus, dev)
     decode_cpu_check(corpus, dev, enc)
     log(f"cpu check wall: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    radix_kernels = radix_phase(dev)
+    log(f"radix phase wall: {time.perf_counter() - t0:.1f} s")
     profile_phase(corpus, dev)
 
     from brotli_tpu_torch.ops.fold_cuda import config_name
@@ -991,6 +1069,7 @@ def main() -> int:
         kernels.append(dict(name=f"step_probe reads={reads}", route="cuda",
                             source=DS_SRC, replaces=SP_REPLACES,
                             library_ms=None, **t))
+    kernels += radix_kernels
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

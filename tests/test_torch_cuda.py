@@ -1,6 +1,7 @@
 """brotli_tpu_torch on the card: the CUDA kernels (fold, match_rounds,
-decode_step, step_probe) against their plain versions, and the compress
-and batch-decode paths on CUDA against the CPU paths.
+decode_step, step_probe, the radix probes' five primitives) against
+their plain versions, and the compress and batch-decode paths on CUDA
+against the CPU paths.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is
 false.  On a machine with a card:
@@ -20,6 +21,7 @@ from brotli_tpu_torch.decode import batch_gpu as B
 from brotli_tpu_torch.ops import decode_gpu as D
 from brotli_tpu_torch.ops import fold_cuda as F
 from brotli_tpu_torch.ops import match_rounds_cuda as MR
+from brotli_tpu_torch.ops import radix_cuda as RC
 
 pytestmark = pytest.mark.cuda
 
@@ -196,3 +198,61 @@ def test_decompress_batch_gpu_card_matches_cpu():
     assert D.LAUNCHES["decode_step"] == before + 1
     assert got == decompress_batch_gpu(streams, device="cpu")
     assert got[1] == 8
+
+
+def _rows(rng, rows, narrow=False):
+    x = rng.integers(-(1 << 31), 1 << 31, size=(rows, 128), dtype=np.int64)
+    return (x % 5 if narrow else x).astype(np.int32)
+
+
+def _launched_once(key, fn, *args):
+    before = RC.LAUNCHES.get(key, 0)
+    out = fn(*args)
+    assert RC.LAUNCHES[key] == before + 1
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("r", [8, 32, 256, 1024, 4096, 8192])
+def test_gather_rows_kernel_matches_ref(r):
+    dev = _card()
+    rng = np.random.default_rng(r)
+    x = torch.from_numpy(_rows(rng, 16384)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, r, size=(16384, 128),
+                                        dtype=np.int32)).to(dev)
+    got = _launched_once(f"gather_rows_R{r}", RC.gather_rows, x, idx, r)
+    assert torch.equal(got, RC.gather_rows_ref(x, idx, r))
+
+
+def test_gather_lanes_kernel_matches_ref():
+    dev = _card()
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(_rows(rng, 1001)).to(dev)   # a ragged last block
+    idx = torch.from_numpy(rng.integers(0, 128, size=(1001, 128),
+                                        dtype=np.int32)).to(dev)
+    got = _launched_once("gather_lanes", RC.gather_lanes, x, idx)
+    assert torch.equal(got, RC.gather_lanes_ref(x, idx))
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_hist8_and_cmpex3_kernels_match_ref(narrow):
+    dev = _card()
+    x = torch.from_numpy(_rows(np.random.default_rng(22), 3 * 2048,
+                               narrow)).to(dev)
+    got = _launched_once("hist8", RC.hist8, x)
+    assert torch.equal(got, RC.hist8_ref(x))
+    assert int(got.sum()) == x.numel()
+    got = _launched_once("cmpex3", RC.cmpex3, x)
+    assert torch.equal(got, RC.cmpex3_ref(x))
+
+
+def test_run_copy_kernel_matches_ref():
+    dev = _card()
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(_rows(rng, 4096)).to(dev)
+    offs = torch.from_numpy(rng.integers(0, 4096 - 16, size=(300,),
+                                         dtype=np.int32)).to(dev)
+    got = _launched_once("run_copy", RC.run_copy, x, torch.zeros_like(x),
+                         offs, 16)
+    assert torch.equal(got, RC.run_copy_ref(x, torch.zeros_like(x), offs,
+                                            16))

@@ -359,3 +359,37 @@ def test_step_probe_ref_matches_probe_kernel(reads, monkeypatch):
     got = D.step_probe(torch.from_numpy(tab), torch.from_numpy(st), 6, reads)
     assert D.LAUNCHES == before
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_native_decode_pools_and_matches_reference(monkeypatch):
+    """The port's native one-shot decode keeps its 32 MiB table and an
+    output buffer of up to 64 MiB across calls, as the JAX package's
+    does, and equals it: small streams, an output that outgrows the
+    first 4 MiB buffer, one past the pool's 64 MiB, and a corrupt
+    stream followed by a good one."""
+    from brotli_tpu import native_bridge as jnb
+    from brotli_tpu_torch import native_bridge as tnb
+
+    from . import oracle
+    text = open(os.path.join(ROOT, "native", "decoder.cpp"), "rb").read()
+    streams = [oracle.compress(text[:n], quality=q, lgwin=22)
+               for n, q in ((0, 1), (1000, 5), (len(text), 9))]
+    big = (text * ((9 << 20) // len(text) + 1))[:9 << 20]
+    streams.append(oracle.compress(big, quality=1, lgwin=22))
+    streams.append(oracle.compress(bytes(72 << 20), quality=1, lgwin=24))
+    good = streams[1]
+    corrupt = good[:8] + bytes(b ^ 0x5A for b in good[8:])
+    monkeypatch.setattr(tnb, "_decode_out", None)
+    table = None
+    for s in streams + [corrupt, good]:
+        try:
+            want = jnb.decode(s)
+        except ValueError as e:
+            with pytest.raises(ValueError) as got:
+                tnb.decode(s)
+            assert got.value.args == e.args
+            continue
+        assert tnb.decode(s) == want
+        table = table if table is not None else tnb._table_mem
+        assert tnb._table_mem is table
+    assert len(tnb._decode_out) == 32 << 20   # grew 8x from 4 MiB, once

@@ -22,7 +22,10 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
         "brotli_tpu_torch.native_bridge, brotli_tpu_torch.ops.split, "
         "brotli_tpu_torch.ops.decode_gpu, "
         "brotli_tpu_torch.decode.batch_gpu, "
-        "brotli_tpu_torch.decode.decoder\n"
+        "brotli_tpu_torch.decode.decoder, "
+        "brotli_tpu_torch.ops.radix_cuda, "
+        "brotli_tpu_torch.research.radix_probe, "
+        "brotli_tpu_torch.research.radix_probe2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'brotli_tpu' or "
         "m.startswith('brotli_tpu.'))\n"
