@@ -60,12 +60,13 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """csrc/<stem>.cu as a ctypes library, built at first use.
-    `bind(lib)` sets the argtypes and restype of its C functions."""
+    """csrc/<stem>.cu, or the CUDA source `src`, as a ctypes library,
+    built at first use.  `bind(lib)` sets the argtypes and restype of its
+    C functions."""
 
-    def __init__(self, stem: str, bind):
+    def __init__(self, stem: str, bind, src: str | None = None):
         self.stem = stem
-        self.src = os.path.join(_PKG, "csrc", f"{stem}.cu")
+        self.src = src or os.path.join(_PKG, "csrc", f"{stem}.cu")
         self._bind = bind
         self._lock = threading.Lock()
         self._lib = None
@@ -75,7 +76,7 @@ class CudaLibrary:
                            capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(
-                f"brotli_tpu_torch: nvcc failed on {self.stem}.cu\n"
+                f"brotli_tpu_torch: nvcc failed on {self.src}\n"
                 + r.stdout[-4000:] + r.stderr[-4000:])
         return r.stdout + r.stderr
 

@@ -4,17 +4,41 @@
 // (P2-P5) and research/radix_probe2.py (Q1), the building blocks a
 // counting sort on the device would be made of.  Each computes what the
 // TPU body computes on an int32 array of rows of 128 lanes, not its
-// block structure:
+// block structure.  All offsets are 32-bit: the wrappers take at most
+// 2^31 / 128 rows.
 //
-//   gather_rows   research/radix_probe.py:96 (gather_kernel, launched by
-//                 make_gather) and radix_probe2.py:64 (gather_kernel):
-//                 out[b*R + i, l] = x[b*R + idx[b*R + i, l], l], R a
-//                 runtime argument.
-//                 One thread per output element: idx and out coalesced,
-//                 x gathered from its R-row block (at most 4 MiB, in L2).
-//   gather_lanes  research/radix_probe.py:156 (gather1_kernel):
-//                 out[r, l] = x[r, idx[r, l]].  A block stages 8 rows of
-//                 512 bytes in shared memory and gathers from there.
+//   gather_rows   replaces research/radix_probe.py:96 (gather_kernel,
+//                 launched by make_gather at :102) and radix_probe2.py:64
+//                 (gather_kernel, launched at :70):
+//                 out[b*R + i, l] = x[b*R + idx[b*R + i, l], l].
+//                 Bound: bytes, 12 B an element (x and idx read once, out
+//                 written once).  The gather never leaves its lane, so a
+//                 block (CTA) stages a strip of R rows x W lanes of x in
+//                 shared memory with 16-byte cp.async, one HBM read per
+//                 byte in row segments of 4 W bytes, and gathers from
+//                 there: a thread reads 4 lanes of idx as one int4, takes
+//                 4 values from the strip and writes one int4 of out.
+//                 Two routes, picked by the wrapper from R:
+//                   smem     R <= 2048: a strip of about 64 KiB (16,384
+//                            elements; W = 128 at R <= 128, 64 at 256,
+//                            16 at 1024, 8 at 2048), several R-blocks a
+//                            CTA when R is small, 3 CTAs an SM;
+//                   l2       R > 2048: x read through L2 (21 MB fits), a
+//                            32-byte sector for each 4-byte element; a
+//                            strip of 64 KiB there would have W <= 4, and
+//                            its 16-byte row segments cost more than that.
+//                 Banks: a thread takes its 4 lanes in an order rotated
+//                 by its place in the warp, so at W >= 32 the 32 reads of
+//                 one step hit 32 banks whatever idx holds; at W < 32 a
+//                 row is narrower than the banks and random rows still
+//                 meet some conflicts (shared memory is not the bound).
+//   gather_lanes  replaces research/radix_probe.py:156 (gather1_kernel,
+//                 launched at :161): out[r, l] = x[r, idx[r, l]].
+//                 Bound: bytes, 12 B an element.  One warp per row, 4
+//                 rows in flight a warp (x and idx as int4, every byte
+//                 read once), the rows staged in a per-warp buffer of
+//                 4 x 512 bytes behind __syncwarp (no block barrier), one
+//                 int4 of out a thread and row; a grid-stride loop.
 //   hist8         research/radix_probe.py:187 (hist_kernel), the function
 //                 its body means (its `.reshape(1, 128)` does not trace):
 //                 out[8*t + q, l] = #{rows i of 2048-row tile t :
@@ -40,8 +64,7 @@
 // What bounds them on this card: bytes.  Each reads its inputs once and
 // writes its output once (gathers 12 B an element, hist8 4 B, cmpex3
 // 8 B, run_copy 1 KiB a covered row) with a few integer operations per
-// element; none is anywhere near the 67 T/s integer rate.  These first
-// versions are plain and right; making them fast is later work.
+// element; none is anywhere near the 67 T/s integer rate.
 //
 // Every launcher returns the CUDA error code of its launch (0 on
 // success); pointers are device pointers, the stream a cudaStream_t.
@@ -54,34 +77,170 @@ namespace {
 
 constexpr int kLanes = 128;        // lanes of a row
 constexpr int kTile = 2048;        // rows of a hist8 / cmpex3 tile
-constexpr int kLaneRows = 8;       // rows a gather_lanes block stages
 constexpr int kBins = 256;         // byte digits hist8 counts
 constexpr int kGroup = 32;         // lanes a hist8 block counts
 constexpr int kHistThreads = 1024;
 constexpr int kCmpexRun = 32;      // output rows of one cmpex3 thread
 constexpr int kCmpexHalo = 7;      // rows before them it reads (1 + 2 + 4)
 constexpr int kThreads = 256;
+constexpr int kStrip = 16384;      // elements of x a gather_rows CTA stages
+constexpr int kPrefetch = 4;       // idx int4 loads a thread keeps ahead
+constexpr int kLaneWarps = 8;      // warps of a gather_lanes CTA
+constexpr int kLaneRows = 4;       // rows in flight per gather_lanes warp
+constexpr int kMaxDevices = 64;    // cards a process may launch on
 
-__global__ void gather_rows_kernel(const int32_t* __restrict__ x,
-                                   const int32_t* __restrict__ idx,
-                                   int32_t* __restrict__ out, int64_t n,
-                                   int rows_per_block) {
-  int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (t >= n) return;
-  int64_t row = t / kLanes;
-  int64_t base = row - row % rows_per_block;
-  out[t] = x[(base + idx[t]) * kLanes + (t % kLanes)];
+enum Route { kSmem = 0, kL2 = 1 };
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
 
-__global__ void gather_lanes_kernel(const int32_t* __restrict__ x,
-                                    const int32_t* __restrict__ idx,
-                                    int32_t* __restrict__ out, int rows) {
-  __shared__ int32_t row_of[kLaneRows][kLanes];
-  int r = blockIdx.x * kLaneRows + threadIdx.y;
-  int64_t at = static_cast<int64_t>(r) * kLanes + threadIdx.x;
-  if (r < rows) row_of[threadIdx.y][threadIdx.x] = x[at];
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+__device__ __forceinline__ int4 ld_int4(const int32_t* p) {
+  return __ldg(reinterpret_cast<const int4*>(p));
+}
+
+// out.s = v[(s + r) & 3]
+__device__ __forceinline__ int4 rot4(int4 v, int r) {
+  if (r == 1) return make_int4(v.y, v.z, v.w, v.x);
+  if (r == 2) return make_int4(v.z, v.w, v.x, v.y);
+  if (r == 3) return make_int4(v.w, v.x, v.y, v.z);
+  return v;
+}
+
+// Row of the strip where the R-block of strip row i starts: a mask for
+// a power-of-two R (magic == 0), else floor(i / R) * R by a multiply-high
+// with magic = floor(2^32 / R) + 1, exact for i, R < 2^16.
+__device__ __forceinline__ int block_start(int i, int R, unsigned magic) {
+  return magic == 0u ? (i & ~(R - 1))
+                     : static_cast<int>(__umulhi(static_cast<unsigned>(i),
+                                                 magic)) * R;
+}
+
+// One int4 of out from the strip xs (rows of W lanes): the 4 lanes col ..
+// col + 3 of a row whose R-block starts at strip row `start`, idx a.  The
+// lanes are taken in the order rot, rot + 1, ... (mod 4).
+template <int W>
+__device__ __forceinline__ int4 gather4(const int32_t* xs, int start,
+                                        int col, int4 a, int rot) {
+  const int4 ar = rot4(a, rot);
+  int4 g;
+  g.x = xs[(start + ar.x) * W + col + (rot & 3)];
+  g.y = xs[(start + ar.y) * W + col + ((rot + 1) & 3)];
+  g.z = xs[(start + ar.z) * W + col + ((rot + 2) & 3)];
+  g.w = xs[(start + ar.w) * W + col + ((rot + 3) & 3)];
+  return rot4(g, (4 - rot) & 3);
+}
+
+// The smem route.  CTA c stages lanes [l0, l0 + W) of R-blocks
+// [b0, b0 + blocks_per_cta) (the last group may hold fewer), then each
+// thread gathers int4 items it = tid, tid + 256, ... of the strip, item
+// it being strip row it / (W / 4), lanes 4 (it % (W / 4)) + 0..3.
+template <int W>
+__global__ void __launch_bounds__(kThreads, 3)
+gather_rows_smem_kernel(const int32_t* __restrict__ x,
+                        const int32_t* __restrict__ idx,
+                        int32_t* __restrict__ out, int R, unsigned magic,
+                        int blocks_per_cta, int n_blocks) {
+  constexpr int kQ = W / 4;                // int4 items of a strip row
+  constexpr int kStrips = kLanes / W;
+  // a warp's 32 items sit at 32 consecutive items; lanes 4 (t % 8) of
+  // one step meet the rotation's 4 offsets when W >= 32
+  constexpr int kRotShift = kQ >= 8 ? 3 : (kQ == 4 ? 2 : 1);
+  extern __shared__ int4 smem[];
+  int32_t* xs = reinterpret_cast<int32_t*>(smem);
+  const int group = blockIdx.x / kStrips;
+  const int l0 = (blockIdx.x % kStrips) * W;
+  const int b0 = group * blocks_per_cta;
+  const int rows = min(blocks_per_cta, n_blocks - b0) * R;
+  const int items = rows * kQ;
+  const int at0 = b0 * R * kLanes + l0;    // x / idx / out offset of item 0
+  for (int it = threadIdx.x; it < items; it += kThreads)
+    cp_async16(xs + it * 4, x + at0 + (it / kQ) * kLanes + (it % kQ) * 4);
+  int4 a[kPrefetch];
+#pragma unroll
+  for (int k = 0; k < kPrefetch; ++k) {
+    const int it = threadIdx.x + k * kThreads;
+    a[k] = it < items ? ld_int4(idx + at0 + (it / kQ) * kLanes + (it % kQ) * 4)
+                      : make_int4(0, 0, 0, 0);
+  }
+  cp_async_wait_all();
   __syncthreads();
-  if (r < rows) out[at] = row_of[threadIdx.y][idx[at]];
+  const int rot = ((threadIdx.x & 31) >> kRotShift) & 3;
+  for (int it0 = threadIdx.x; it0 < items; it0 += kPrefetch * kThreads) {
+#pragma unroll
+    for (int k = 0; k < kPrefetch; ++k) {
+      const int it = it0 + k * kThreads;
+      const int4 cur = a[k];
+      const int nxt = it + kPrefetch * kThreads;
+      if (nxt < items)
+        a[k] = ld_int4(idx + at0 + (nxt / kQ) * kLanes + (nxt % kQ) * 4);
+      if (it < items) {
+        const int i = it / kQ;
+        const int col = (it % kQ) * 4;
+        *reinterpret_cast<int4*>(out + at0 + i * kLanes + col) =
+            gather4<W>(xs, block_start(i, R, magic), col, cur, rot);
+      }
+    }
+  }
+}
+
+// The l2 route: blockIdx.y is the R-block, each thread one int4 item of
+// it (row item / 32, lanes 4 (item % 32) + 0..3), x read through L2.
+__global__ void __launch_bounds__(kThreads)
+gather_rows_l2_kernel(const int32_t* __restrict__ x,
+                      const int32_t* __restrict__ idx,
+                      int32_t* __restrict__ out, int R) {
+  const int item = blockIdx.x * kThreads + threadIdx.x;
+  if (item >= R * (kLanes / 4)) return;
+  const int start = blockIdx.y * R * kLanes + (item % (kLanes / 4)) * 4;
+  const int at = start + (item / (kLanes / 4)) * kLanes;
+  const int4 a = ld_int4(idx + at);
+  const int32_t* xb = x + start;
+  *reinterpret_cast<int4*>(out + at) =
+      make_int4(__ldg(xb + a.x * kLanes), __ldg(xb + a.y * kLanes + 1),
+                __ldg(xb + a.z * kLanes + 2), __ldg(xb + a.w * kLanes + 3));
+}
+
+__global__ void __launch_bounds__(kLaneWarps * 32)
+gather_lanes_kernel(const int32_t* __restrict__ x,
+                    const int32_t* __restrict__ idx,
+                    int32_t* __restrict__ out, int rows) {
+  __shared__ int4 buf[kLaneWarps][kLaneRows][kLanes / 4];
+  const int t = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int32_t* rows_of = reinterpret_cast<const int32_t*>(buf[w]);
+  const int stride = gridDim.x * kLaneWarps * kLaneRows;
+  for (int r0 = (blockIdx.x * kLaneWarps + w) * kLaneRows; r0 < rows;
+       r0 += stride) {
+    int4 xv[kLaneRows], iv[kLaneRows];
+#pragma unroll
+    for (int k = 0; k < kLaneRows; ++k) {
+      const int at = (r0 + k) * kLanes + 4 * t;
+      const bool in = r0 + k < rows;
+      xv[k] = in ? ld_int4(x + at) : make_int4(0, 0, 0, 0);
+      iv[k] = in ? ld_int4(idx + at) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int k = 0; k < kLaneRows; ++k) buf[w][k][t] = xv[k];
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kLaneRows; ++k) {
+      if (r0 + k < rows) {
+        const int32_t* row = rows_of + k * kLanes;
+        *reinterpret_cast<int4*>(out + (r0 + k) * kLanes + 4 * t) =
+            make_int4(row[iv[k].x], row[iv[k].y], row[iv[k].z],
+                      row[iv[k].w]);
+      }
+    }
+    __syncwarp();   // the buffer is read before the next rows land
+  }
 }
 
 __global__ void __launch_bounds__(kHistThreads)
@@ -157,23 +316,80 @@ unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
+// smem route instances by strip width; each may take 64 KiB of dynamic
+// shared memory, an attribute of the function set once on each card
+template <int W>
+cudaError_t launch_smem(const int32_t* x, const int32_t* idx, int32_t* out,
+                        int R, unsigned magic, int g, int n_blocks,
+                        unsigned ctas, size_t smem_bytes,
+                        cudaStream_t stream) {
+  static bool sized[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    e = cudaFuncSetAttribute(gather_rows_smem_kernel<W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kStrip * 4);
+    if (e != cudaSuccess) return e;
+    sized[dev] = true;
+  }
+  gather_rows_smem_kernel<W><<<ctas, kThreads, smem_bytes, stream>>>(
+      x, idx, out, R, magic, g, n_blocks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// gather_rows by route (0 smem, 1 l2) on the grid the wrapper plans from
+// R (ops/radix_cuda.py:gather_rows_plan).  smem: grid_x CTAs, each a
+// strip of `lanes` lanes over `blocks_per_cta` R-blocks in `smem_bytes`
+// of dynamic shared memory; l2: grid_x CTAs an R-block by grid_y
+// R-blocks.
 extern "C" int gather_rows_launch(const void* x, const void* idx, void* out,
-                                  int rows, int rows_per_block,
-                                  void* stream) {
-  const int64_t n = static_cast<int64_t>(rows) * kLanes;
-  gather_rows_kernel<<<blocks_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<const int32_t*>(idx),
-      static_cast<int32_t*>(out), n, rows_per_block);
-  return static_cast<int>(cudaGetLastError());
+                                  int rows, int R, int route, int lanes,
+                                  int blocks_per_cta, int grid_x, int grid_y,
+                                  int smem_bytes, void* stream) {
+  const auto* xp = static_cast<const int32_t*>(x);
+  const auto* ip = static_cast<const int32_t*>(idx);
+  auto* op = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int n_blocks = rows / R;
+  if (route == kSmem) {
+    if (R * lanes > kStrip || blocks_per_cta < 1 || grid_y != 1 ||
+        smem_bytes > kStrip * 4)
+      return cudaErrorInvalidValue;
+    const unsigned magic =
+        (R & (R - 1)) == 0 ? 0u
+                           : static_cast<unsigned>((1ull << 32) / R + 1);
+    const unsigned ctas = grid_x;
+    const size_t bytes = smem_bytes;
+    switch (lanes) {
+      case 128: return launch_smem<128>(xp, ip, op, R, magic, blocks_per_cta,
+                                        n_blocks, ctas, bytes, st);
+      case 64: return launch_smem<64>(xp, ip, op, R, magic, blocks_per_cta,
+                                      n_blocks, ctas, bytes, st);
+      case 32: return launch_smem<32>(xp, ip, op, R, magic, blocks_per_cta,
+                                      n_blocks, ctas, bytes, st);
+      case 16: return launch_smem<16>(xp, ip, op, R, magic, blocks_per_cta,
+                                      n_blocks, ctas, bytes, st);
+      case 8: return launch_smem<8>(xp, ip, op, R, magic, blocks_per_cta,
+                                    n_blocks, ctas, bytes, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (route == kL2 && smem_bytes == 0) {
+    const dim3 grid(grid_x, grid_y);
+    gather_rows_l2_kernel<<<grid, kThreads, 0, st>>>(xp, ip, op, R);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int gather_lanes_launch(const void* x, const void* idx, void* out,
-                                   int rows, void* stream) {
-  const dim3 block(kLanes, kLaneRows);
-  gather_lanes_kernel<<<(rows + kLaneRows - 1) / kLaneRows, block, 0,
+                                   int rows, int ctas, void* stream) {
+  gather_lanes_kernel<<<ctas, kLaneWarps * 32, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(idx),
       static_cast<int32_t*>(out), rows);

@@ -18,12 +18,14 @@ raises; on CPU tensors it runs its plain PyTorch version `*_ref`.
 Indices and offsets are taken to be in range, as the probes make them:
 gather_rows' in [0, R), gather_lanes' in [0, 128), run_copy's in
 [0, rows - run_rows].  LAUNCHES counts kernel launches, gather_rows'
-under "gather_rows_R<R>".
+under "gather_rows_R<R>".  gather_rows_plan and gather_lanes_plan give
+the route and grid a gather launches with.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,6 +33,11 @@ from ..buildcache import CudaLibrary
 
 LANES = 128
 TILE = 2048   # rows of a hist8 / cmpex3 tile
+STRIP = 16384   # elements of x a gather_rows CTA stages (64 KiB)
+SMEM_MAX_R = 2048   # the widest R gather_rows stages in shared memory
+MAX_ROWS = (1 << 31) // LANES   # the kernels' offsets are 32-bit
+ROUTES = {"smem": 0, "l2": 1}
+LANE_ROWS_PER_CTA = 32   # gather_lanes: 8 warps x 4 rows in flight
 
 #: kernel launches by name; reset and read by callers that check a run
 #: went through the kernels
@@ -39,8 +46,8 @@ LAUNCHES: dict[str, int] = {}
 
 def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gather_rows_launch.argtypes = [vp, vp, vp, ci, ci, vp]
-    lib.gather_lanes_launch.argtypes = [vp, vp, vp, ci, vp]
+    lib.gather_rows_launch.argtypes = [vp, vp, vp] + [ci] * 8 + [vp]
+    lib.gather_lanes_launch.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.hist8_launch.argtypes = [vp, vp, ci, vp]
     lib.run_copy_launch.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.cmpex3_launch.argtypes = [vp, vp, ci, vp]
@@ -56,25 +63,81 @@ def _check_rows(name: str, *xs: torch.Tensor, multiple: int = 1) -> str:
     """Raise unless every x is a contiguous int32 [rows, 128] tensor of
     one shape on one device with rows a multiple of `multiple`; returns
     the device type ("cpu" or "cuda")."""
-    x = xs[0]
-    if any(t.dtype != torch.int32 or t.dim() != 2 or t.shape != x.shape
-           or t.device != x.device or not t.is_contiguous() for t in xs) \
-            or x.shape[1] != LANES or x.shape[0] % multiple:
+    shape, dev = xs[0].shape, xs[0].device
+    ok = len(shape) == 2 and shape[1] == LANES and shape[0] % multiple == 0
+    for t in xs:   # a plain loop: this runs on every launch
+        ok = ok and t.dtype == torch.int32 and t.shape == shape \
+            and t.device == dev and t.is_contiguous()
+    if not ok:
         raise ValueError(f"{name}: want contiguous int32 [rows, {LANES}] "
                          f"tensors of one shape on one device, rows a "
                          f"multiple of {multiple}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return x.device.type
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type
 
 
-def _launch(name: str, fn, *args) -> None:
-    dev = torch.cuda.current_device()
+def _launch(name: str, dev: torch.device, fn, *args) -> None:
+    """fn(*args, stream) on the current stream of `dev`, switching the
+    current device only when it is another one; raises on a CUDA error."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*args, stream)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def _check_cuda(name: str, *ts: torch.Tensor) -> None:
+    if ts[0].shape[0] > MAX_ROWS or any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: want at most {MAX_ROWS} rows and "
+                         "16-byte aligned tensors")
+
+
+@functools.lru_cache(maxsize=None)
+def gather_rows_plan(rows: int, rows_per_block: int) -> dict:
+    """The route and grid gather_rows launches with on `rows` rows in
+    blocks of R = rows_per_block, the one place they are decided.
+    "smem" at R <= 2048: a strip of R rows x `lanes` lanes staged in
+    shared memory, lanes the widest power of two up to 128 with R x
+    lanes <= 16,384, `blocks_per_cta` R-blocks a CTA, `smem_bytes` of
+    dynamic shared memory; "l2" beyond (no staging; on an H100 strips of
+    4 lanes are slower than reads through L2, PERF.md).  `grid` is the
+    (x, y) grid of CTAs of 256 threads, `ctas` their number."""
+    r = rows_per_block
+    if r < 1 or rows % r or not 0 < rows <= MAX_ROWS:
+        raise ValueError(f"gather_rows: no plan for {rows} rows in blocks "
+                         f"of {r}")
+    n_blocks = rows // r
+    if r <= SMEM_MAX_R:
+        lanes = LANES
+        while r * lanes > STRIP:
+            lanes //= 2
+        g = min(STRIP // (r * lanes), n_blocks)
+        grid = (-(-n_blocks // g) * (LANES // lanes), 1)
+        plan = dict(route="smem", lanes=lanes, blocks_per_cta=g,
+                    smem_bytes=g * r * lanes * 4)
+    else:
+        grid = (-(-r * (LANES // 4) // 256), n_blocks)
+        plan = dict(route="l2", lanes=LANES, blocks_per_cta=1, smem_bytes=0)
+    return dict(plan, grid=grid, ctas=grid[0] * grid[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gather_lanes_plan(rows: int, sms: int) -> dict:
+    """gather_lanes' grid on `rows` rows and a card of `sms` SMs: CTAs of
+    8 warps, 4 rows in flight a warp, at most 8 CTAs an SM (the warps
+    stride over the rest)."""
+    return dict(route="warp", ctas=min(-(-rows // LANE_ROWS_PER_CTA),
+                                       8 * sms),
+                smem_bytes=LANE_ROWS_PER_CTA * LANES * 4)
 
 
 # ---------------------------------------------------------------------------
@@ -138,17 +201,23 @@ def cmpex3_ref(x: torch.Tensor) -> torch.Tensor:
 def gather_rows(x: torch.Tensor, idx: torch.Tensor,
                 rows_per_block: int) -> torch.Tensor:
     """take_along_axis(axis=0) inside each block of `rows_per_block`
-    rows (research/radix_probe.py P2, radix_probe2.py Q1)."""
+    rows (research/radix_probe.py P2, radix_probe2.py Q1).  On the card
+    it launches the route and grid of gather_rows_plan."""
     r = int(rows_per_block)
     if r < 1:
         raise ValueError("gather_rows: rows_per_block must be >= 1")
     if _check_rows("gather_rows", x, idx, multiple=r) == "cpu":
         return gather_rows_ref(x, idx, r)
+    _check_cuda("gather_rows", x, idx)
     lib = LIB.get()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _launch(f"gather_rows_R{r}", lib.gather_rows_launch, x.data_ptr(),
-                idx.data_ptr(), out.data_ptr(), x.shape[0], r)
+    rows = x.shape[0]
+    if rows:
+        p = gather_rows_plan(rows, r)
+        _launch(f"gather_rows_R{r}", x.device, lib.gather_rows_launch,
+                x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, r,
+                ROUTES[p["route"]], p["lanes"], p["blocks_per_cta"],
+                *p["grid"], p["smem_bytes"])
     return out
 
 
@@ -157,11 +226,14 @@ def gather_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     P2, gather1_kernel)."""
     if _check_rows("gather_lanes", x, idx) == "cpu":
         return gather_lanes_ref(x, idx)
+    _check_cuda("gather_lanes", x, idx)
     lib = LIB.get()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _launch("gather_lanes", lib.gather_lanes_launch, x.data_ptr(),
-                idx.data_ptr(), out.data_ptr(), x.shape[0])
+    rows = x.shape[0]
+    if rows:
+        ctas = gather_lanes_plan(rows, _sm_count(x.device.index))["ctas"]
+        _launch("gather_lanes", x.device, lib.gather_lanes_launch,
+                x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, ctas)
     return out
 
 
@@ -174,9 +246,8 @@ def hist8(x: torch.Tensor) -> torch.Tensor:
     lib = LIB.get()
     out = torch.empty((8 * x.shape[0] // TILE, LANES), dtype=torch.int32,
                       device=x.device)
-    with torch.cuda.device(x.device):
-        _launch("hist8", lib.hist8_launch, x.data_ptr(), out.data_ptr(),
-                x.shape[0])
+    _launch("hist8", x.device, lib.hist8_launch, x.data_ptr(),
+            out.data_ptr(), x.shape[0])
     return out
 
 
@@ -198,9 +269,8 @@ def run_copy(src: torch.Tensor, dst: torch.Tensor, offs: torch.Tensor,
     lib = LIB.get()
     offs = offs.contiguous()
     if offs.numel():
-        with torch.cuda.device(src.device):
-            _launch("run_copy", lib.run_copy_launch, src.data_ptr(),
-                    dst.data_ptr(), offs.data_ptr(), offs.numel(), run_rows)
+        _launch("run_copy", src.device, lib.run_copy_launch, src.data_ptr(),
+                dst.data_ptr(), offs.data_ptr(), offs.numel(), run_rows)
     return dst
 
 
@@ -211,7 +281,6 @@ def cmpex3(x: torch.Tensor) -> torch.Tensor:
         return cmpex3_ref(x)
     lib = LIB.get()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _launch("cmpex3", lib.cmpex3_launch, x.data_ptr(), out.data_ptr(),
-                x.shape[0])
+    _launch("cmpex3", x.device, lib.cmpex3_launch, x.data_ptr(),
+            out.data_ptr(), x.shape[0])
     return out

@@ -18,9 +18,9 @@ first u32 chunk values (v0, int32, as [rows, 128]) it times:
 The primitives are ops/radix_cuda.py's kernels (on CPU tensors their
 plain versions).  The reference script's hist_kernel does not trace
 under jax 0.9.0 (its `.reshape(1, 128)`), so it can only print `hist
-FAIL`; hist8 computes the function its body means.  Each time is the
-median of `reps` calls after a warm one: CUDA events on the card, the
-host clock on the CPU.  Result keys are the reference script's.
+FAIL`; hist8 computes the function its body means.  Times follow the
+reference's chain_time (see there).  Result keys and units are the
+reference script's.
 
     python -m brotli_tpu_torch.research.radix_probe            # the card
     python -m brotli_tpu_torch.research.radix_probe --device cpu --mib 1
@@ -44,28 +44,55 @@ from .corpus import SEED, make_corpus
 LANES = RC.LANES
 GATHER_ROWS = (1024, 4096, 8192)   # P2's rows per block
 RUNS, RUN_ROWS = 2048, 16          # P4
+CHAIN = 7                          # the reference's chain length
 
 
-def median_ms(fn, dev: torch.device, reps: int = 15) -> float:
-    """Median wall time of `reps` calls of fn after one warm call, in ms:
-    CUDA events around each call on a CUDA device, else the host clock."""
+def _leg_ms(fn, dev: torch.device) -> float:
+    """Time of fn() in ms, the device idle before it: CUDA events around
+    it and a synchronize after on a CUDA device, else the host clock."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+    t0 = time.perf_counter()
     fn()
-    times = []
-    for _ in range(reps):
-        if dev.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    times.sort()
-    return times[len(times) // 2]
+    return (time.perf_counter() - t0) * 1e3
+
+
+def chain_time(step, x0, dev: torch.device, reps: int = CHAIN) -> float:
+    """Per-call ms of `step` by the reference scripts' method
+    (research/radix_probe.py:41-57, chain_time): one warm call; then,
+    twice, one call step(x0) timed alone and a dependent chain of `reps`
+    calls (x = step(x) from x0, each output the next input) timed as a
+    whole; per call = (chain - one) / (reps - 1), the best of the two.
+    A step whose output cannot be its input ignores its argument, so
+    its chain is step(x0) repeated, as the reference's sorts and Q3 legs
+    are timed.  CUDA events on a CUDA device, else the host clock."""
+    if reps < 2:
+        raise ValueError("chain_time: reps must be >= 2")
+
+    def chain():
+        x = x0
+        for _ in range(reps):
+            x = step(x)
+
+    step(x0)
+    best = float("inf")
+    for _ in range(2):
+        one = _leg_ms(lambda: step(x0), dev)
+        many = _leg_ms(chain, dev)
+        best = min(best, (many - one) / (reps - 1))
+    return best
+
+
+def fixed_step(fn):
+    """fn as a chain step that ignores its input."""
+    return lambda _: fn()
 
 
 def block_index(rows: int, high: int, seed: int,
@@ -99,9 +126,10 @@ def inputs(data: bytes, dev: torch.device) -> dict:
                 offs=torch.from_numpy(offs).to(dev))
 
 
-def run(data: bytes, device=None, reps: int = 15) -> dict:
-    """P1-P5 on `data` (a whole multiple of 8192 * 128 bytes); returns
-    the reference script's result keys, times in ms (dma_per_copy_us in
+def run(data: bytes, device=None, reps: int = CHAIN) -> dict:
+    """P1-P5 on `data` (a whole multiple of 8192 * 128 bytes), each
+    timed by chain_time with chains of `reps` calls; returns the
+    reference script's result keys, times in ms (dma_per_copy_us in
     us).  device=None means CUDA and raises without it."""
     dev = resolve_device(device)
     ins = inputs(data, dev)
@@ -124,28 +152,30 @@ def run(data: bytes, device=None, reps: int = 15) -> dict:
 
     for name, fn in (("sort_1k_1p", sort_1k_1p), ("sort_1k_3p", sort_1k_3p),
                      ("sort_2k_3p", sort_2k_3p)):
-        res[name + "_ms"] = median_ms(fn, dev, reps)
+        res[name + "_ms"] = chain_time(fixed_step(fn), None, dev, reps)
 
-    # P2: gathers
+    # P2: gathers, each output the next call's x
     x = ins["x"]
     for r in GATHER_ROWS:
-        res[f"gather_ax0_R{r}_ms"] = median_ms(
-            lambda r=r: RC.gather_rows(x, ins["idx"][r], r), dev, reps)
-    res["gather_ax1_ms"] = median_ms(
-        lambda: RC.gather_lanes(x, ins["idx_lanes"]), dev, reps)
+        res[f"gather_ax0_R{r}_ms"] = chain_time(
+            lambda v, r=r: RC.gather_rows(v, ins["idx"][r], r), x, dev,
+            reps)
+    res["gather_ax1_ms"] = chain_time(
+        lambda v: RC.gather_lanes(v, ins["idx_lanes"]), x, dev, reps)
 
     # P3: the count step
-    res["hist256_ms"] = median_ms(lambda: RC.hist8(x), dev, reps)
+    res["hist256_ms"] = chain_time(fixed_step(lambda: RC.hist8(x)), None, dev,
+                                   reps)
 
     # P4: run copies into a zeroed buffer (zeroed outside the timing)
     dst = torch.zeros_like(x)
-    ms = median_ms(lambda: RC.run_copy(x, dst, ins["offs"], RUN_ROWS), dev,
-                   reps)
+    ms = chain_time(fixed_step(lambda: RC.run_copy(x, dst, ins["offs"],
+                                               RUN_ROWS)), None, dev, reps)
     res["dma_2048x8KB_ms"] = ms
     res["dma_per_copy_us"] = ms / RUNS * 1e3
 
-    # P5: compare-exchange stages
-    ms = median_ms(lambda: RC.cmpex3(x), dev, reps)
+    # P5: compare-exchange stages, each output the next call's x
+    ms = chain_time(RC.cmpex3, x, dev, reps)
     res["cmpex_3stage_ms"] = ms
     res["cmpex_per_stage_ms"] = ms / 3
     return res
@@ -160,7 +190,8 @@ def cli(run_fn, argv=None) -> None:
     ap.add_argument("--mib", type=int, default=5,
                     help="corpus MiB (seed 20261016); 5 is the probe's "
                          "N = 5,242,880")
-    ap.add_argument("--reps", type=int, default=15)
+    ap.add_argument("--reps", type=int, default=CHAIN,
+                    help="calls in a timed chain (at least 2)")
     a = ap.parse_args(argv)
     print(json.dumps(run_fn(make_corpus(a.mib, SEED), a.device, a.reps)))
 

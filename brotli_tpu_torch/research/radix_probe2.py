@@ -13,9 +13,9 @@ Counterpart of research/radix_probe2.py, on the card:
       payload (sort_short) and its fold (fold_short: 16/0), and the
       whole best_matches_exact9_p(invert=False)
 
-Times as in radix_probe.py (median of `reps` after a warm call; CUDA
-events on the card, the host clock on the CPU); result keys are the
-reference script's.
+Times as in radix_probe.py (the reference's chain_time: chains of
+`reps` calls less one call, best of 2; CUDA events on the card, the
+host clock on the CPU); result keys are the reference script's.
 
     python -m brotli_tpu_torch.research.radix_probe2            # the card
     python -m brotli_tpu_torch.research.radix_probe2 --device cpu --mib 1
@@ -31,7 +31,8 @@ from ..ops import radix_cuda as RC
 from ..ops.fold_cuda import (_sort_by_v0, _sort_by_v0v1,
                              best_matches_exact9_p, fold_sorted)
 from ..ops.matching import as_i32, u32_values_at
-from .radix_probe import LANES, block_index, cli, median_ms
+from .radix_probe import (CHAIN, LANES, block_index, chain_time, cli,
+                          fixed_step)
 
 GATHER_ROWS = (8, 32, 256)   # Q1's rows per block, each its own seed
 SEGMENTS = (8, 64)           # Q2
@@ -39,10 +40,11 @@ WINDOW = (1 << 22) - 16      # Q3's window (lgwin 22)
 FOLD = dict(min_pos=0, window=WINDOW, lbs=135, len_shift=26)
 
 
-def run(data: bytes, device=None, reps: int = 15) -> dict:
-    """Q1-Q3 on `data` (a whole multiple of 256 * 128 bytes); returns
-    the reference script's result keys, times in ms.  device=None means
-    CUDA and raises without it."""
+def run(data: bytes, device=None, reps: int = CHAIN) -> dict:
+    """Q1-Q3 on `data` (a whole multiple of 256 * 128 bytes), each timed
+    by chain_time with chains of `reps` calls; returns the reference
+    script's result keys, times in ms.  device=None means CUDA and
+    raises without it."""
     dev = resolve_device(device)
     n = len(data)
     if n % (max(GATHER_ROWS) * LANES):
@@ -58,8 +60,8 @@ def run(data: bytes, device=None, reps: int = 15) -> dict:
     x = v0.view(rows, LANES)
     for r in GATHER_ROWS:
         idx = block_index(rows, r, r, dev)
-        res[f"gather_ax0_R{r}_ms"] = median_ms(
-            lambda r=r, idx=idx: RC.gather_rows(x, idx, r), dev, reps)
+        res[f"gather_ax0_R{r}_ms"] = chain_time(
+            lambda v, r=r, idx=idx: RC.gather_rows(v, idx, r), x, dev, reps)
 
     # Q2: segmented sorts, positions in the segment as payload
     for seg in SEGMENTS:
@@ -68,8 +70,8 @@ def run(data: bytes, device=None, reps: int = 15) -> dict:
         def seg_sort(xs=xs):
             k, pos = torch.sort(xs, dim=1, stable=True)
             return k ^ pos.to(torch.int32)
-        res[f"segsort_{seg}x{n // seg // 1024}K_ms"] = median_ms(
-            seg_sort, dev, reps)
+        res[f"segsort_{seg}x{n // seg // 1024}K_ms"] = chain_time(
+            fixed_step(seg_sort), None, dev, reps)
 
     # Q3: the exact9 legs
     def prep():
@@ -103,7 +105,7 @@ def run(data: bytes, device=None, reps: int = 15) -> dict:
                      ("leg_fold8", fold8), ("leg_sort_short", sort_short),
                      ("leg_fold_short", fold_short),
                      ("whole_exact9", whole_exact9)):
-        res[name + "_ms"] = median_ms(fn, dev, reps)
+        res[name + "_ms"] = chain_time(fixed_step(fn), None, dev, reps)
     return res
 
 

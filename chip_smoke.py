@@ -18,8 +18,12 @@ noise, slowly varying integers, random bytes), then:
                 (the h4 fold's sorted chunk values against their shift
                 by 1, as compress_fast runs it): each kernel must equal
                 its plain version on the card bit for bit; prints
-                kernel ms (CUDA events, median of 15), the bound, and
-                the plain version's ms.  step_probe (TPU probe #9's
+                kernel ms (CUDA events around one launch, median of 15),
+                device_ms (the kernel's own duration from torch.profiler,
+                median of 15 launches, the L2 flushed by a 128 MiB fill
+                before each), burst_ms (events around 50 back-to-back
+                launches, over 50), the bound, and the plain version's
+                ms.  step_probe (TPU probe #9's
                 kernel function) at the probe's shape, 128 lanes x 2048
                 steps with 0/1/2 reads, and decode_step (the batch
                 decoder's symbol loop) on 64 lanes of <= 8 KiB from
@@ -61,12 +65,19 @@ noise, slowly varying integers, random bytes), then:
                 (gather_rows at R = 8 ... 8192, gather_lanes, hist8,
                 run_copy, cmpex3) against its plain version at the
                 probes' shape, int32 [40960, 128]: kernel, plain and
-                torch.gather ms and the bound
+                torch.gather ms, device_ms and burst_ms, and the bound;
+                for the gathers also the route and grid they launched
+                with and the host us a call of the wrapper and of
+                torch.gather (1,000 calls, no synchronize)
   profile       where one q9 call on 8 MiB spends its time: host
                 functions by own time (cProfile), device kernels by
                 device time and the device's idle share (torch.profiler)
 
-The line before the last is {"kernels": [...]}; the last line is
+Every row of the kernels line carries ms, device_ms, burst_ms and
+device_bound_share (bound_ms / device_ms: a cold L2 keeps it at or
+under 1); the gathers' rows also library_device_ms, library_burst_ms,
+host_us, library_host_us and grid.  The line before the last is
+{"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 without CUDA, or without the package beside this script, it exits
 non-zero and prints no result.
@@ -84,6 +95,9 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+from brotli_tpu_torch.research.devtime import (device_times, host_us,
+                                               median_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROW = 4_194_304 + 524_288   # halo + span of one lgwin-22 dispatch
@@ -156,11 +170,32 @@ def build_all() -> str:
                               done.items()))
     for k in ("fold.cu", "match_rounds.cu", "decode_step.cu",
               "radix_probe.cu"):
+        fn = "?"
         for ln in done[k][0][1].splitlines():
-            if "registers" in ln or ("spill" in ln and
-                                     " 0 bytes spill stores" not in ln):
-                log(f"  ptxas {k}:", ln.strip())
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                fn = _kernel_name(m.group(1))
+            elif "registers" in ln or ("spill" in ln and
+                                       " 0 bytes spill stores" not in ln):
+                log(f"  ptxas {k} {fn}:", ln.strip().removeprefix(
+                    "ptxas info    : "))
     return done["decode_step.cu"][0][0]
+
+
+def _kernel_name(mangled: str) -> str:
+    """gather_rows_smem_kernel<128> from its mangled name (the name and
+    any integer template arguments)."""
+    at = 3 if mangled.startswith("_ZN") else 2
+    while (m := re.match(r"\d+", mangled[at:])):
+        start = at + m.end()
+        at = start + int(m.group())
+        name = mangled[start:at]
+        if name.endswith("_kernel"):
+            t = re.match(r"I(\w*?)EE", mangled[at:])
+            args = re.findall(r"L[a-z](-?\d+)E",
+                              t.group(1) + "E" if t else "")
+            return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
 
 
 def sass_step_floor(lib_path: str, kernel: str = "decode_step_kernel"):
@@ -222,21 +257,6 @@ def sass_step_floor(lib_path: str, kernel: str = "decode_step_kernel"):
     raise AssertionError(f"sass: no path around {kernel}'s loop")
 
 
-def _median_ms(fn, reps):
-    import torch
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
-
-
 def kernel_phase(corpus, dev):
     """Every fold configuration at the path's shape, kernel against the
     plain version on the same inputs."""
@@ -268,8 +288,9 @@ def kernel_phase(corpus, dev):
         hits = int((packed != 0).sum())
         if hits == 0:
             raise AssertionError(f"{label}: no matches found")
-        ms = _median_ms(lambda: F.fold_sorted(ops, **args), 15)
-        plain_ms = _median_ms(lambda: F.fold_sorted_ref(ops, **args), 3)
+        ms = median_ms(lambda: F.fold_sorted(ops, **args), 15)
+        dt = device_times(lambda: F.fold_sorted(ops, **args), "fold_kernel")
+        plain_ms = median_ms(lambda: F.fold_sorted_ref(ops, **args), 3)
         # bound: each operand read once, two int32 outputs written once;
         # ~5 integer ops per row and offset for the index and v0 test,
         # ~20 more where v0 matches (this input's count)
@@ -287,9 +308,11 @@ def kernel_phase(corpus, dev):
         results[label] = dict(ms=ms, plain_ms=plain_ms,
                               bound_ms=max(t_bytes, t_ops),
                               bound_by="bytes" if t_bytes >= t_ops
-                              else "operations", max_abs_err=err)
+                              else "operations", max_abs_err=err, **dt)
         log(f"kernel {label}: equal to fold_sorted_ref on {ROW} rows "
-            f"({hits} matches); kernel {ms:.4f} ms, plain {plain_ms:.3f}"
+            f"({hits} matches); kernel {ms:.4f} ms (device "
+            f"{dt['device_ms']:.4f}, burst {dt['burst_ms']:.4f}), plain "
+            f"{plain_ms:.3f}"
             f" ms, bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f}"
             f" MB, {nops / 1e9:.2f} G int ops)")
         del ops, packed, score, rp, rs
@@ -320,8 +343,9 @@ def match_rounds_phase(corpus, dev):
         raise AssertionError(f"match_rounds: kernel != match_rounds_ref "
                              f"({int((got != want).sum())} lengths differ)")
     err = int((got.long() - want.long()).abs().max())
-    ms = _median_ms(lambda: MR.match_rounds(va, vb), 15)
-    plain_ms = _median_ms(lambda: MR.match_rounds_ref(va, vb), 15)
+    ms = median_ms(lambda: MR.match_rounds(va, vb), 15)
+    dt = device_times(lambda: MR.match_rounds(va, vb), "match_rounds_kernel")
+    plain_ms = median_ms(lambda: MR.match_rounds_ref(va, vb), 15)
     # bound: each candidate needs its rounds up to the first unequal one
     # (8 bytes each) and writes 4 bytes; ~6 integer ops per round read
     nz = (va ^ vb) != 0
@@ -334,14 +358,15 @@ def match_rounds_phase(corpus, dev):
     hist = torch.bincount(got, minlength=33).tolist()
     log(f"kernel match_rounds: equal to match_rounds_ref at R=8, M={m} "
         f"(lengths 0/4/32: {hist[0]}/{hist[4]}/{hist[32]}); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{ms:.4f} ms (device {dt['device_ms']:.4f}, burst "
+        f"{dt['burst_ms']:.4f}), plain {plain_ms:.3f} ms, bound "
         f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB for "
         f"{rounds_read} rounds read of {8 * m}; all rounds "
         f"{(64 * m + 4 * m) / 1e6:.1f} MB = "
         f"{(68 * m) / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=err)
+                max_abs_err=err, **dt)
 
 
 def _decoder():
@@ -587,8 +612,10 @@ def step_probe_phase(dev):
         if not torch.equal(got, want):
             raise AssertionError(f"step_probe reads={reads}: kernel != "
                                  "step_probe_ref")
-        ms = _median_ms(lambda: D.step_probe(tab, st, PROBE_STEPS, reads), 15)
-        plain_ms = _median_ms(
+        ms = median_ms(lambda: D.step_probe(tab, st, PROBE_STEPS, reads), 15)
+        dt = device_times(lambda: D.step_probe(tab, st, PROBE_STEPS, reads),
+                          "step_probe_kernel")
+        plain_ms = median_ms(
             lambda: D.step_probe_ref(tab, st, PROBE_STEPS, reads), 3)
         # the table reads and the state in and out; per lane and step an
         # LCG (3 ops), an index add and an accumulate per read, an add
@@ -598,9 +625,11 @@ def step_probe_phase(dev):
             PROBE_LANES * PROBE_STEPS * (5 + 2 * reads))
         results[reads] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=by, launches=launches[reads],
-                              max_abs_err=int((got - want).abs().max()))
+                              max_abs_err=int((got - want).abs().max()),
+                              **dt)
         log(f"kernel step_probe reads={reads}: equal to step_probe_ref at "
             f"{PROBE_LANES} lanes x {PROBE_STEPS} steps; kernel {ms:.4f} ms"
+            f" (device {dt['device_ms']:.4f}, burst {dt['burst_ms']:.4f})"
             f" ({ms * 1e3 / PROBE_STEPS:.4f} us per step), plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({by})")
     return results
@@ -639,8 +668,9 @@ def radix_phase(dev):
     for o in offs.cpu().tolist():
         covered[o:o + RP.RUN_ROWS] = True
     n_cov = int(covered.sum())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # (name, launch key, replaces, kernel, plain, library call or None,
-    #  bytes, integer ops)
+    #  bytes, integer ops, the kernel's name on the device, its grid)
     sites = []
     for r, where, idx in (
             [(r, "research/radix_probe.py:102", ins["idx"][r])
@@ -652,26 +682,31 @@ def radix_phase(dev):
                       lambda r=r, idx=idx: RC.gather_rows(x, idx, r),
                       lambda r=r, idx=idx: RC.gather_rows_ref(x, idx, r),
                       lambda xv=xv, iv=iv: torch.gather(xv, 1, iv),
-                      12 * n, 3 * n))
+                      12 * n, 3 * n, "gather_rows_",
+                      RC.gather_rows_plan(rows, r)))
     il, il64 = ins["idx_lanes"], ins["idx_lanes"].long()
     sites.append(("gather_lanes", "gather_lanes",
                   "research/radix_probe.py:161",
                   lambda: RC.gather_lanes(x, il),
                   lambda: RC.gather_lanes_ref(x, il),
-                  lambda: torch.gather(x, 1, il64), 12 * n, 2 * n))
+                  lambda: torch.gather(x, 1, il64), 12 * n, 2 * n,
+                  "gather_lanes_kernel", RC.gather_lanes_plan(rows, sms)))
     sites.append(("hist8", "hist8", "research/radix_probe.py:200",
                   lambda: RC.hist8(x), lambda: RC.hist8_ref(x), None,
-                  4 * n + 4 * 8 * n // 2048, 2 * n + 32 * 8 * n // 2048))
+                  4 * n + 4 * 8 * n // 2048, 2 * n + 32 * 8 * n // 2048,
+                  "hist8_kernel", None))
     dst_k, dst_r = torch.zeros_like(x), torch.zeros_like(x)
     sites.append(("run_copy", "run_copy", "research/radix_probe.py:241",
                   lambda: RC.run_copy(x, dst_k, offs, RP.RUN_ROWS),
                   lambda: RC.run_copy_ref(x, dst_r, offs, RP.RUN_ROWS),
-                  None, 2 * 512 * n_cov + 4 * len(offs), 0))
+                  None, 2 * 512 * n_cov + 4 * len(offs), 0,
+                  "run_copy_kernel", None))
     sites.append(("cmpex3", "cmpex3", "research/radix_probe.py:279",
                   lambda: RC.cmpex3(x), lambda: RC.cmpex3_ref(x), None,
-                  8 * n, 12 * n))
+                  8 * n, 12 * n, "cmpex3_kernel", None))
     kernels = []
-    for name, key, where, kern, plain, lib, nbytes, nops in sites:
+    for name, key, where, kern, plain, lib, nbytes, nops, kname, grid \
+            in sites:
         if launches.get(key, 0) == 0:
             raise AssertionError(f"{name}: no launch in the probes' run")
         got, want = kern(), plain()
@@ -681,21 +716,34 @@ def radix_phase(dev):
                                  f"({int((got != want).sum())} values "
                                  "differ)")
         err = int((got.long() - want.long()).abs().max())
-        ms = _median_ms(kern, 15)
-        plain_ms = _median_ms(plain, 15)
-        lib_ms = _median_ms(lib, 15) if lib is not None else None
+        ms = median_ms(kern, 15)
+        dt = device_times(kern, kname)
+        plain_ms = median_ms(plain, 15)
         bound_ms, by = _bound(nbytes, nops)
-        kernels.append(dict(name=name, route="cuda", source=RP_SRC,
-                            replaces=where, launches=launches[key],
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=by,
-                            library_ms=lib_ms))
-        lib_txt = (f"torch.gather {lib_ms:.4f} ms" if lib is not None else
-                   "library none: no single PyTorch call computes it")
+        entry = dict(name=name, route="cuda", source=RP_SRC,
+                     replaces=where, launches=launches[key],
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=by, library_ms=None, **dt)
+        lib_txt = "library none: no single PyTorch call computes it"
+        if lib is not None:
+            ldt = device_times(lib, "gather")
+            entry.update(library_ms=median_ms(lib, 15),
+                         library_device_ms=ldt["device_ms"],
+                         library_burst_ms=ldt["burst_ms"],
+                         host_us=host_us(kern), library_host_us=host_us(lib),
+                         grid=grid)
+            lib_txt = (f"torch.gather {entry['library_ms']:.4f} ms (device "
+                       f"{ldt['device_ms']:.4f}, burst {ldt['burst_ms']:.4f},"
+                       f" host {entry['library_host_us']:.1f} us a call); "
+                       f"wrapper host {entry['host_us']:.1f} us a call; grid "
+                       f"{json.dumps(grid)}")
+        kernels.append(entry)
         log(f"kernel {name}: equal to its plain version on [{rows}, 128] "
-            f"int32; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"int32; kernel {ms:.4f} ms (device {dt['device_ms']:.4f}, "
+            f"burst {dt['burst_ms']:.4f}), plain {plain_ms:.3f} ms, "
             f"{lib_txt}, bound {bound_ms:.5f} ms ({by}: "
-            f"{nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} M int ops), "
+            f"{nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} M int ops; "
+            f"{bound_ms / dt['device_ms']:.3f} of device_ms), "
             f"{launches[key]} launches in the probes' run")
     log(f"radix run_copy: {n_cov} of {rows} rows covered by "
         f"{len(offs)} runs of {RP.RUN_ROWS}")
@@ -755,12 +803,15 @@ def _decode_compare(lanes, dev, max_steps=None, what=""):
 
 
 def _decode_timing(got, steps, args, sizes, per_step, reps=15):
-    """decode_step's kernel ms (CUDA events, median of `reps`) and bound
+    """decode_step's kernel ms (CUDA events, median of `reps`), its
+    device and burst times (device_times) and bound
     on `args`: the stream bytes the lanes read and the literals and
     commands they write, against this run's steps times `per_step`, the
     fewest instructions a step of the kernel executes (sass_step_floor)."""
     from brotli_tpu_torch.ops import decode_gpu as D
-    ms = _median_ms(lambda: D.batch_decode_device(*args, *sizes), reps)
+    ms = median_ms(lambda: D.batch_decode_device(*args, *sizes), reps)
+    dt = device_times(lambda: D.batch_decode_device(*args, *sizes),
+                      "decode_step_kernel")
     bit0 = args[1].long()
     read = int(((got[4].long() + 7) // 8 - bit0 // 8).sum())
     nlit, ncmd = int(got[1].long().sum()), int(got[3].long().sum())
@@ -768,9 +819,9 @@ def _decode_timing(got, steps, args, sizes, per_step, reps=15):
     nsteps = int(steps.long().sum())
     nops = per_step * nsteps
     bound_ms, by = _bound(nbytes, nops)
-    return ms, bound_ms, by, (f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} G "
-                              f"instructions: {per_step} a step x {nsteps} "
-                              "steps")
+    return ms, dt, bound_ms, by, (f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} "
+                                  f"G instructions: {per_step} a step x "
+                                  f"{nsteps} steps")
 
 
 def decode_kernel_phase(corpus, dev, enc, per_step):
@@ -832,17 +883,20 @@ def decode_kernel_phase(corpus, dev, enc, per_step):
     cut_lanes = int((got2[5] < D.PH_DONE).sum())
     if cut_lanes == 0:
         raise AssertionError("decode kernel phase: no lane hit the cap")
-    ms, bound_ms, by, work = _decode_timing(got, steps, args, sizes,
-                                            per_step)
+    ms, dt, bound_ms, by, work = _decode_timing(got, steps, args, sizes,
+                                                per_step)
     log(f"kernel decode_step: equal to batch_decode_ref in all seven "
         f"outputs on 64 lanes of <= 8 KiB (cap {cap}: 63 done, the "
         f"flipped lane falls back with status {status[flip_at]}, the "
         f"dictionary lane has static-dictionary references; steps per lane "
         f"{int(steps.min())}..{int(steps.max())}) and at cap {small} "
-        f"({cut_lanes} lanes cut); kernel {ms:.3f} ms, plain "
+        f"({cut_lanes} lanes cut); kernel {ms:.3f} ms (device "
+        f"{dt['device_ms']:.3f}, burst {dt['burst_ms']:.3f}), plain "
         f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({by}: {work})")
     return dict(lanes64_ms=ms, lanes64_plain_ms=plain_ms,
-                lanes64_bound_ms=bound_ms)
+                lanes64_bound_ms=bound_ms,
+                lanes64_device_ms=dt["device_ms"],
+                lanes64_burst_ms=dt["burst_ms"])
 
 
 def decode_path_phase(corpus, dev, enc, per_step):
@@ -944,17 +998,18 @@ def decode_path_phase(corpus, dev, enc, per_step):
     status = got[5].cpu().numpy()
     if (status != D.PH_DONE).any():
         raise AssertionError("decode_step: a serving lane did not finish")
-    ms, bound_ms, by, work = _decode_timing(got, steps, args, sizes,
-                                            per_step)
+    ms, dt, bound_ms, by, work = _decode_timing(got, steps, args, sizes,
+                                                per_step)
     log(f"kernel decode_step: equal to batch_decode_ref in all seven "
         f"outputs and the step counts on the serving batch ({len(lanes)} "
         f"lanes, L {args[0].shape[1]}, cap {sizes[0]}, s_lit {sizes[1]}, "
         f"s_cmd {sizes[2]}; steps per lane mean "
         f"{float(steps.float().mean()):.0f} max {int(steps.max())}); "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"kernel {ms:.3f} ms (device {dt['device_ms']:.3f}, burst "
+        f"{dt['burst_ms']:.3f}), plain {plain_ms:.1f} ms, bound "
         f"{bound_ms:.4f} ms ({by}: {work}; {time.perf_counter() - t:.1f} s)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                max_abs_err=0), launches
+                max_abs_err=0, **dt), launches
 
 
 def _profile_decode(streams, dev, rows=10):
@@ -1070,6 +1125,8 @@ def main() -> int:
                             source=DS_SRC, replaces=SP_REPLACES,
                             library_ms=None, **t))
     kernels += radix_kernels
+    for k in kernels:
+        k["device_bound_share"] = k["bound_ms"] / k["device_ms"]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -213,23 +213,48 @@ def _launched_once(key, fn, *args):
     return out
 
 
-@pytest.mark.parametrize("r", [8, 32, 256, 1024, 4096, 8192])
-def test_gather_rows_kernel_matches_ref(r):
+def _index(rng, shape, high, kind):
+    """int32 indices in [0, high): all 0, all high - 1, each lane's own
+    reversed (127 - l, along the lanes) or seeded."""
+    if kind == "zeros":
+        return np.zeros(shape, np.int32)
+    if kind == "last":
+        return np.full(shape, high - 1, np.int32)
+    if kind == "reversed":
+        return np.broadcast_to(127 - np.arange(128, dtype=np.int32),
+                               shape).copy()
+    return rng.integers(0, high, size=shape, dtype=np.int32)
+
+
+# gather_rows on rows a multiple of R, with every index kind, at R = 1
+# ... 40960: the smem route to 2048 (strips of 128 down to 8 lanes, among
+# them non-powers of two), the l2 route beyond
+GATHER_CASES = [(r, kind)
+                for r in (1, 8, 24, 32, 256, 1024, 2048, 4096, 5001, 8192,
+                          12000, 40960)
+                for kind in ("seeded", "zeros", "last")]
+
+
+@pytest.mark.parametrize("r,kind", GATHER_CASES)
+def test_gather_rows_kernel_matches_ref(r, kind):
     dev = _card()
     rng = np.random.default_rng(r)
-    x = torch.from_numpy(_rows(rng, 16384)).to(dev)
-    idx = torch.from_numpy(rng.integers(0, r, size=(16384, 128),
-                                        dtype=np.int32)).to(dev)
+    rows = r * -(-16384 // r)
+    x = torch.from_numpy(_rows(rng, rows)).to(dev)
+    idx = torch.from_numpy(_index(rng, (rows, 128), r, kind)).to(dev)
     got = _launched_once(f"gather_rows_R{r}", RC.gather_rows, x, idx, r)
     assert torch.equal(got, RC.gather_rows_ref(x, idx, r))
 
 
-def test_gather_lanes_kernel_matches_ref():
+# 1001 rows end in a ragged row group; 40993 also make the warps of a
+# card's 8 CTAs an SM stride over more rows
+@pytest.mark.parametrize("rows", [1001, 40993])
+@pytest.mark.parametrize("kind", ["seeded", "reversed", "zeros"])
+def test_gather_lanes_kernel_matches_ref(kind, rows):
     dev = _card()
     rng = np.random.default_rng(21)
-    x = torch.from_numpy(_rows(rng, 1001)).to(dev)   # a ragged last block
-    idx = torch.from_numpy(rng.integers(0, 128, size=(1001, 128),
-                                        dtype=np.int32)).to(dev)
+    x = torch.from_numpy(_rows(rng, rows)).to(dev)
+    idx = torch.from_numpy(_index(rng, (rows, 128), 128, kind)).to(dev)
     got = _launched_once("gather_lanes", RC.gather_lanes, x, idx)
     assert torch.equal(got, RC.gather_lanes_ref(x, idx))
 

@@ -15,6 +15,7 @@ Tolerance: exact (assert_array_equal) throughout.
 
 import hashlib
 import inspect
+import math
 import os
 
 import jax
@@ -27,6 +28,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from brotli_tpu_torch.ops import fold_cuda as F
 from brotli_tpu_torch.ops import radix_cuda as RC
+from brotli_tpu_torch.research import gather_ab as GA
 from brotli_tpu_torch.research import radix_probe as RP
 from brotli_tpu_torch.research import radix_probe2 as RP2
 from brotli_tpu_torch.research.corpus import SEED, make_corpus
@@ -275,28 +277,150 @@ P1_KEYS = {"sort_1k_1p_ms", "sort_1k_3p_ms", "sort_2k_3p_ms",
            "cmpex_per_stage_ms"}
 
 
-def test_radix_probe_runs_on_cpu_without_launching():
+@pytest.fixture
+def chain_calls(monkeypatch):
+    """Each chain_time call of a probe's run as (its result, the two
+    one-call legs it timed)."""
+    calls, legs = [], []
+    leg_ms, chain_time = RP._leg_ms, RP.chain_time
+
+    def spy_leg(fn, dev):
+        legs.append(leg_ms(fn, dev))
+        return legs[-1]
+
+    def spy(step, x0, dev, reps=RP.CHAIN):
+        legs.clear()
+        ms = chain_time(step, x0, dev, reps)
+        calls.append((ms, legs[0::2]))   # legs: one, chain, one, chain
+        return ms
+
+    monkeypatch.setattr(RP, "_leg_ms", spy_leg)
+    for mod in (RP, RP2):
+        monkeypatch.setattr(mod, "chain_time", spy)
+    return calls
+
+
+def _check_times(res, calls, n_calls):
+    """Every time is a finite float; each chain_time result is (chain -
+    one) / 6 at its best, so no less than -(its slower one-call leg) / 6
+    however the host clock stalls."""
+    assert all(isinstance(v, float) and math.isfinite(v)
+               for v in res.values())
+    assert len(calls) == n_calls
+    for ms, ones in calls:
+        assert len(ones) == 2 and ms >= -max(ones) / (RP.CHAIN - 1)
+
+
+def test_radix_probe_runs_on_cpu_without_launching(chain_calls):
     data = make_corpus(1, SEED)
     before = dict(RC.LAUNCHES)
-    res = RP.run(data, device="cpu", reps=1)
+    res = RP.run(data, device="cpu")
     assert RC.LAUNCHES == before
     assert set(res) == P1_KEYS
-    assert all(v >= 0 for v in res.values())
+    _check_times(res, chain_calls, 10)
     assert res["dma_per_copy_us"] == pytest.approx(
         res["dma_2048x8KB_ms"] / RP.RUNS * 1e3)
 
 
-def test_radix_probe2_runs_on_cpu_without_launching():
+def test_radix_probe2_runs_on_cpu_without_launching(chain_calls):
     data = make_corpus(1, SEED)[:1 << 18]
     before = dict(RC.LAUNCHES), dict(F.LAUNCHES)
-    res = RP2.run(data, device="cpu", reps=1)
+    res = RP2.run(data, device="cpu")
     assert (dict(RC.LAUNCHES), dict(F.LAUNCHES)) == before
     assert set(res) == {
         "gather_ax0_R8_ms", "gather_ax0_R32_ms", "gather_ax0_R256_ms",
         "segsort_8x32K_ms", "segsort_64x4K_ms", "leg_prep_ms",
         "leg_sort8_ms", "leg_fold8_ms", "leg_sort_short_ms",
         "leg_fold_short_ms", "whole_exact9_ms"}
-    assert all(v >= 0 for v in res.values())
+    _check_times(res, chain_calls, 11)
+
+
+@pytest.mark.parametrize("feeds", [True, False])
+def test_chain_time_is_the_references_method(monkeypatch, feeds):
+    """One warm call, then twice one call from x0 and a chain of 7 in
+    which each output is the next input (or, for a step that ignores its
+    input, step(x0) repeated); per call (chain - one) / 6, the best of
+    the two rounds, in ms.  Each clock read costs 0.5 s, which the
+    subtraction cancels; calls of the first round cost 3 ms, of the
+    second 2 ms."""
+    clock = [0.0]
+
+    def read():
+        clock[0] += 0.5
+        return clock[0]
+
+    seen = []
+
+    def step(x):
+        seen.append(int(x[0]))
+        clock[0] += 0.003 if len(seen) <= 9 else 0.002
+        return x + 1
+
+    monkeypatch.setattr(RP.time, "perf_counter", read)
+    x0 = torch.zeros(4, dtype=torch.int32)
+    fn = step if feeds else RP.fixed_step(lambda: step(x0))
+    ms = RP.chain_time(fn, x0, torch.device("cpu"))
+    assert ms == pytest.approx(2.0)
+    chain = list(range(7)) if feeds else [0] * 7
+    assert seen == [0] + ([0] + chain) * 2
+    with pytest.raises(ValueError):
+        RP.chain_time(fn, x0, torch.device("cpu"), reps=1)
+
+
+# the six probe sites at the probes' [40960, 128]: the route, its strip
+# width and R-blocks a CTA, its grid
+SITES = {8: ("smem", 128, 16, (320, 1)), 32: ("smem", 128, 4, (320, 1)),
+         256: ("smem", 64, 1, (320, 1)), 1024: ("smem", 16, 1, (320, 1)),
+         4096: ("l2", 128, 1, (512, 10)), 8192: ("l2", 128, 1, (1024, 5))}
+
+
+@pytest.mark.parametrize("r", sorted(SITES))
+def test_gather_rows_plan_at_the_sites(r):
+    """A staged strip is 64 KiB a CTA in 320 CTAs (3 CTAs an SM fill 132
+    SMs in one wave); the l2 route stages nothing, a thread an int4."""
+    p = RC.gather_rows_plan(40960, r)
+    assert (p["route"], p["lanes"], p["blocks_per_cta"], p["grid"]) == \
+        SITES[r]
+    assert p["ctas"] == p["grid"][0] * p["grid"][1]
+    assert p["smem_bytes"] == (65536 if p["route"] == "smem" else 0)
+
+
+@pytest.mark.parametrize("rows,r", [(40960, 3), (40960, 0), (0, 8),
+                                    (RC.MAX_ROWS + 128, 128)])
+def test_gather_rows_plan_refuses_a_shape_it_cannot_take(rows, r):
+    with pytest.raises(ValueError):
+        RC.gather_rows_plan(rows, r)
+
+
+@pytest.mark.parametrize("rows,r,route", [
+    (16384, 1, "smem"), (16392, 24, "smem"), (20004, 5001, "l2"),
+    (40960, 40960, "l2"), (24000, 12000, "l2"), (8, 8, "smem"),
+    (16384, 2048, "smem"), (24576, 3, "smem"), (40960, 40, "smem"),
+    (40960, 2560, "l2"), (RC.MAX_ROWS, 1, "smem"),
+    (RC.MAX_ROWS, 4096, "l2")])
+def test_gather_rows_plan_routes(rows, r, route):
+    """The route follows R alone; a strip never passes 64 KiB, the CTAs
+    cover every R-block and lane, and the grid fits the card's limits
+    (2^31 - 1 CTAs along x, 65,535 along y) up to the most rows the
+    kernels take."""
+    p = RC.gather_rows_plan(rows, r)
+    assert p["route"] == route
+    assert p["smem_bytes"] <= 65536
+    gx, gy = p["grid"]
+    assert gx < 1 << 31 and gy <= 65535 and p["ctas"] == gx * gy
+    n_blocks = rows // r
+    if route == "smem":
+        assert r * p["lanes"] <= RC.STRIP and p["lanes"] >= 8
+        assert gy == 1 and p["smem_bytes"] == \
+            p["blocks_per_cta"] * r * p["lanes"] * 4
+        assert gx * p["blocks_per_cta"] * p["lanes"] >= n_blocks * 128
+    else:
+        assert gy == n_blocks and gx * 256 >= r * 32
+
+
+def test_gather_lanes_plan_strides_past_eight_ctas_an_sm():
+    assert RC.gather_lanes_plan(1001, 132)["ctas"] == 32
+    assert RC.gather_lanes_plan(40960, 132)["ctas"] == 8 * 132
 
 
 def test_probe_inputs_follow_the_reference_seeds():
@@ -326,6 +450,30 @@ def test_corpus_is_the_same_at_every_commit(mib, digest):
     """make_corpus gives the bytes chip_smoke.py has run on since the
     port began (its 5 MiB is the probes' input)."""
     assert hashlib.sha256(make_corpus(mib, SEED)).hexdigest() == digest
+
+
+def test_gather_ab_times_the_probes_gather_sites():
+    """research/gather_ab.py holds old and new gathers to the probes'
+    seven sites on the probes' own inputs: R = 8, 32, 256 indexed as
+    radix_probe2 draws them, 1024, 4096, 8192 and the lanes as
+    radix_probe does."""
+    data = make_corpus(GA.MIB, SEED)
+    ins = RP.inputs(data, torch.device("cpu"))
+    got = GA.sites(torch.device("cpu"))
+    assert [(n, r) for n, _, _, r in got] == \
+        [(f"gather_rows R={r}", r) for r in (8, 32, 256, 1024, 4096, 8192)] \
+        + [("gather_lanes", None)]
+    for name, x, idx, r in got:
+        assert torch.equal(x, ins["x"]) and x.shape == (40960, 128)
+        want = ins["idx_lanes"] if r is None else ins["idx"][r] \
+            if r in RP.GATHER_ROWS else RP.block_index(40960, r, r, x.device)
+        assert torch.equal(idx, want), name
+
+
+def test_gather_ab_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        GA.main(["--old", "radix_probe.cu"])
 
 
 def test_probes_without_device_raise_when_cuda_is_absent(monkeypatch):
