@@ -29,14 +29,30 @@
 // the batch's row length L (the longest lane re-reads its last byte).
 //
 // Bound on an H100: neither bytes nor operations.  A lane's steps are a
-// dependent chain (window -> symbol -> next window) of scalar loads from
-// its stream row and its trees; per step a few hundred integer
-// operations and a handful of dependent loads.  The card-wide bounds
-// (stream bytes + output bytes over 3.35 TB/s, counted operations over
-// 67 T/s) sit far below the chain's latency.  The design keeps the
-// chain short: trees as canonical first/limit/offset rows (15 compares
-// per symbol, no per-lane lookup table), only the lane's phase decoded,
-// and 32-thread blocks so 1024 lanes spread over 32 SMs.
+// dependent chain (window -> symbol -> next window), so the kernel's
+// time is the longest lane's steps times the latency of one step.  The
+// design keeps every read of that chain on chip:
+//
+//   - each lane's root tables (ops/decode_gpu.py build_tree_lut: the
+//     next LIT_BITS / CMD_BITS / DIST_BITS window bits -> symbol and
+//     length, the command entry with its insert/copy codes and implicit
+//     flag) and its trees' first/limit/offset rows are staged in shared
+//     memory when the CTA starts, with the hot constants (insert and
+//     copy length codes as base << 5 | extra bits, short distance codes,
+//     dictionary size bits); a symbol is one shared read, and a code
+//     longer than its table (0.5-2% of symbols) goes on with the
+//     compare rule from the table's length + 1 and one global read
+//   - the window comes from three aligned 8-byte words in registers;
+//     a step consumes at most 57 bits, so it advances by at most one
+//     word, and the word it then loads is needed a step later at the
+//     earliest: the load is off the chain
+//   - the distance ring is four registers, its short codes selected by
+//     compares (no local memory)
+//   - a step runs its phase's code only, and a step that cannot end in
+//     a copy (a literal run that goes on, a command with an insert; most
+//     steps) skips the copy and phase logic
+//   - decode_step_plan (ops/decode_gpu.py) spreads the lanes over every
+//     SM, one lane a warp: a warp runs only its own lane's phase
 //
 // step_probe_kernel is TPU probe #9's kernel function
 // (research/decode_step_kernel_probe.py:61-82, launched at :94): per
@@ -53,64 +69,55 @@ namespace {
 constexpr int PH_CMD = 0, PH_EXTRAS = 1, PH_LIT = 2, PH_DIST = 3,
               PH_DONE = 4, PH_FALLBACK = 5;
 
-// offsets into the int32 constant table (ops/decode_gpu.py _TABLE_LAYOUT)
-constexpr int T_INS_BASE = 0, T_INS_EXTRA = 24, T_CPY_BASE = 48,
-              T_CPY_EXTRA = 72, T_CMD2INS = 96, T_CMD2CPY = 800,
-              T_IMPL0 = 1504, T_SC_IDX = 2208, T_SC_DELTA = 2224,
-              T_DICT_SBITS = 2240, T_DICT_OUTLEN = 2265;
+// the constant table (ops/decode_gpu.py _TABLE_LAYOUT): its first
+// HOT_INTS ints are staged in shared memory, the rest is read from
+// global memory on the rare paths
+constexpr int H_INS = 0, H_CPY = 24, H_SC_IDX = 48, H_SC_DELTA = 64,
+              H_DICT_SBITS = 80, HOT_INTS = 128;
+constexpr int T_CMD2INS = 128, T_CMD2CPY = 832, T_IMPL0 = 1536,
+              T_DICT_OUTLEN = 2240;
 
-struct Tree {
-    const int32_t* first;   // [N, 15]
-    const int32_t* limit;   // [N, 15]
-    const int32_t* offset;  // [N, 15]
-    const int32_t* syms;    // [N, A]
-    const int32_t* single;  // [N]
-};
+// a lane's table (ops/decode_gpu.py lane_tables): the root tables, then
+// each tree's rows first[16], limit[16], offset[16]
+constexpr int LIT_BITS = 9, CMD_BITS = 10, DIST_BITS = 8;
+constexpr int LUT_LONG = 1 << 4;
+constexpr int L_LIT = 0, L_CMD = L_LIT + (1 << LIT_BITS),
+              L_DIST = L_CMD + (1 << CMD_BITS),
+              L_ROWS = L_DIST + (1 << DIST_BITS), ROW_INTS = 48,
+              LANE_INTS = L_ROWS + 3 * ROW_INTS;
+static_assert(LANE_INTS % 4 == 0, "a lane's table is staged as int4");
+
+constexpr int MAX_THREADS = 256;       // decode_gpu.PLAN_MAX_WARPS warps
+constexpr int MAX_SMEM = 232448;       // an H100 CTA's dynamic shared bytes
 
 // Field order = the pointer and size arrays decode_step_launch takes.
 struct Params {
-    const uint8_t* data;  // [N, L]
+    const uint8_t* data;  // [N, L]: rows padded by the wrapper, L % 16 == 0
     const int32_t *bit0, *mlen, *window, *npostfix, *ndirect, *out_prefix;
-    const int32_t* cache0;  // [N, 4]
-    const int32_t* table;   // [T_DICT_OUTLEN + 121 * 25]
-    Tree tree[3];           // literal, command, distance
-    uint8_t* lits;          // [N, s_lit]
-    int32_t* cmds;          // [N, s_cmd, 3]
+    const int32_t* cache0;    // [N, 4]
+    const int32_t* table;     // the constant table
+    const int32_t* lane_tab;  // [N, LANE_INTS]
+    const int32_t* syms[3];   // literal, command, distance: [N, A]
+    uint8_t* lits;            // [N, s_lit]
+    int32_t* cmds;            // [N, s_cmd, 3]
     int32_t *nlit, *ncmd, *end_bit, *status;
     int32_t* cache;  // [N, 4]
     int32_t* steps;  // [N]
     int64_t n, L, a_dist, max_steps, s_lit, s_cmd;
+    int32_t lanes_per_cta;  // one lane a warp
 };
-constexpr int kNumPtrs = 32;
+constexpr int kNumPtrs = 21, kNumSizes = 9;
 
 struct LaneTree {
-    const int32_t *first, *limit, *offset, *syms;
-    int32_t single, a;
+    const int32_t* lut;   // shared: the root table
+    const int32_t* rows;  // shared: first[16], limit[16], offset[16]
+    const int32_t* syms;  // global: the lane's symbols by (length, symbol)
+    int32_t a;
 };
-
-__device__ __forceinline__ LaneTree lane_tree(const Tree& t, int64_t i,
-                                              int32_t a) {
-    return LaneTree{t.first + 15 * i, t.limit + 15 * i, t.offset + 15 * i,
-                    t.syms + a * i, __ldg(t.single + i), a};
-}
 
 __device__ __forceinline__ int32_t clampi(int32_t v, int32_t lo,
                                           int32_t hi) {
     return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// (lo >> k) | (hi << (32 - k)) for 0 < k < 32; lo for k == 0
-__device__ __forceinline__ uint32_t shr_or(uint32_t lo, uint32_t hi,
-                                           uint32_t k) {
-    return k ? ((lo >> k) | (hi << (32u - k))) : lo;
-}
-
-// the 32 bits starting k (0 <= k < 64) bits into the window
-__device__ __forceinline__ uint32_t shifted64(uint32_t w_lo, uint32_t w_hi,
-                                              int32_t k) {
-    const bool k32 = k >= 32;
-    return shr_or(k32 ? w_hi : w_lo, k32 ? 0u : w_hi,
-                  static_cast<uint32_t>(k & 31));
 }
 
 // low nb bits of v (nb < 32 on every path; all bits for nb >= 32, as
@@ -127,37 +134,45 @@ __device__ __forceinline__ int32_t bitrev15(uint32_t x) {
     return static_cast<int32_t>((x >> 1) & 0x7FFFu);
 }
 
-// One symbol from the low 15 bits of w (ops/decode_gpu.py:_tree_decode):
-// the first code length whose candidate lies in [first, limit); none
-// found is "bad" and still reads the length-1 slot, as the plain
-// version's argmax of an all-false row does.  A one-symbol tree costs
-// 0 bits.
-__device__ __forceinline__ void tree_decode(const LaneTree& t, uint32_t w,
-                                            int32_t& sym, int32_t& nbits,
-                                            bool& bad) {
-    if (t.single >= 0) {
-        sym = t.single;
-        nbits = 0;
-        bad = false;
-        return;
-    }
-    const int32_t r = bitrev15(w & 0x7FFFu);
-    int l = 0;
-    bool found = false;
-    for (; l < 15; ++l) {
-        const int32_t c = r >> (14 - l);
-        if (c < __ldg(t.limit + l) && c >= __ldg(t.first + l)) {
-            found = true;
-            break;
+// One symbol from the low 15 bits of w as the root-table entry
+// (length | sym << 5, and for the command tree the codes of
+// build_tree_lut).  An entry marked LUT_LONG goes on with
+// ops/decode_gpu.py:_tree_decode's rule from length BITS + 1 (no
+// shorter code matched: the table says so): the first length whose
+// candidate lies in [first, limit); none found is "bad" and still reads
+// the length-1 slot, as the plain version's argmax of an all-false row
+// does.  A one-symbol tree's table gives the symbol with 0 bits.
+template <int BITS, bool CMD>
+__device__ __forceinline__ int32_t tree_decode(const LaneTree& t,
+                                               const int32_t* tab,
+                                               uint32_t w, bool& bad) {
+    int32_t e = t.lut[w & ((1u << BITS) - 1u)];
+    bad = false;
+    if (e & LUT_LONG) {
+        const int32_t r = bitrev15(w & 0x7FFFu);
+        int l = BITS;
+        bool found = false;
+        for (; l < 15; ++l) {
+            const int32_t c = r >> (14 - l);
+            if (c < t.rows[16 + l] && c >= t.rows[l]) {
+                found = true;
+                break;
+            }
         }
+        if (!found) l = 0;
+        const int32_t c = r >> (14 - l);
+        const int32_t sym = __ldg(t.syms + clampi(t.rows[32 + l] + c -
+                                                  t.rows[l], 0, t.a - 1));
+        e = (l + 1) | (sym << 5);
+        if constexpr (CMD) {
+            const int32_t s = clampi(sym, 0, 703);
+            e |= (__ldg(tab + T_IMPL0 + s) << 15) |
+                 (__ldg(tab + T_CMD2INS + s) << 16) |
+                 (__ldg(tab + T_CMD2CPY + s) << 21);
+        }
+        bad = !found;
     }
-    if (!found) l = 0;
-    const int32_t c = r >> (14 - l);
-    const int32_t pos = clampi(__ldg(t.offset + l) + c - __ldg(t.first + l),
-                               0, t.a - 1);
-    sym = __ldg(t.syms + pos);
-    nbits = l + 1;
-    bad = !found;
+    return e;
 }
 
 struct Dist {
@@ -165,22 +180,23 @@ struct Dist {
     bool bad;
 };
 
-// Distance symbol + short-code / direct / extra bits, from the window
-// (wl, wh) (decode_tpu.py dist_decode).
+// Distance symbol + short-code / direct / extra bits, from the window w
+// (decode_tpu.py dist_decode); the ring is c0..c3, newest first.
 __device__ __forceinline__ Dist dist_decode(const LaneTree& t,
-                                            const int32_t* tab,
-                                            const int32_t cache[4],
-                                            int32_t npostfix,
-                                            int32_t ndirect, uint32_t wl,
-                                            uint32_t wh) {
-    int32_t d_sym, d_bits0;
+                                            const int32_t* hot, int32_t c0,
+                                            int32_t c1, int32_t c2,
+                                            int32_t c3, int32_t npostfix,
+                                            int32_t ndirect, uint64_t w) {
     bool d_bad;
-    tree_decode(t, wl, d_sym, d_bits0, d_bad);
-    const int32_t dcode = clampi(d_sym, 0, t.a - 1);
+    const int32_t e = tree_decode<DIST_BITS, false>(
+        t, nullptr, static_cast<uint32_t>(w), d_bad);
+    const int32_t d_bits0 = e & 15;
+    const int32_t dcode = clampi(e >> 5, 0, t.a - 1);
     const int32_t d15 = clampi(dcode, 0, 15);
-    const int32_t short_d =
-        cache[clampi(__ldg(tab + T_SC_IDX + d15), 0, 3)] +
-        __ldg(tab + T_SC_DELTA + d15);
+    const int32_t idx = clampi(hot[H_SC_IDX + d15], 0, 3);
+    const int32_t ring = idx == 0 ? c0 : (idx == 1 ? c1 : (idx == 2 ? c2
+                                                                    : c3));
+    const int32_t short_d = ring + hot[H_SC_DELTA + d15];
     const int32_t direct_d = dcode - 16 + 1;
     const int32_t h = max(dcode - ndirect - 16, 0);
     const int32_t hcode = h >> npostfix;
@@ -189,7 +205,7 @@ __device__ __forceinline__ Dist dist_decode(const LaneTree& t,
     const int32_t nbits = clampi(nbits_raw, 0, 24);  // > 24 is malformed
     const int32_t offs = ((2 + (hcode & 1)) << nbits) - 4;
     const int32_t extra = static_cast<int32_t>(
-        mask(shr_or(wl, wh, static_cast<uint32_t>(d_bits0)), nbits));
+        mask(static_cast<uint32_t>(w >> d_bits0), nbits));
     const int32_t long_d =
         ((offs + extra) << npostfix) + lcode + ndirect + 1;
     const bool is_short = dcode < 16;
@@ -203,18 +219,42 @@ __device__ __forceinline__ Dist dist_decode(const LaneTree& t,
     return r;
 }
 
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(MAX_THREADS, 1)
 decode_step_kernel(const Params p) {
-    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-    if (i >= p.n) return;
+    extern __shared__ int4 smem[];
+    const int32_t* hot = reinterpret_cast<const int32_t*>(smem);
+    const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * p.lanes_per_cta;
+    const int64_t left = p.n - lane0;
+    const int nl = left < p.lanes_per_cta ? static_cast<int>(left)
+                                          : p.lanes_per_cta;
+    // stage the hot constants and the CTA's lanes' tables, 16 bytes a
+    // thread (every thread of the CTA, lanes or not)
+    {
+        const int4* src = reinterpret_cast<const int4*>(p.table);
+        for (int k = threadIdx.x; k < HOT_INTS / 4; k += blockDim.x)
+            smem[k] = __ldg(src + k);
+        src = reinterpret_cast<const int4*>(p.lane_tab + lane0 * LANE_INTS);
+        for (int k = threadIdx.x; k < nl * (LANE_INTS / 4); k += blockDim.x)
+            smem[HOT_INTS / 4 + k] = __ldg(src + k);
+    }
+    __syncthreads();
+    // one lane a warp, on its lane 0: a warp runs its own lane's phase
+    const int slot = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) != 0 || slot >= nl) return;
+    const int64_t i = lane0 + slot;
+
     const int32_t* tab = p.table;
-    const uint8_t* row = p.data + i * p.L;
-    const int64_t last = p.L - 1;
-    const LaneTree lit = lane_tree(p.tree[0], i, 256);
-    const LaneTree cmd = lane_tree(p.tree[1], i, 704);
-    const LaneTree dst = lane_tree(p.tree[2], i,
-                                   static_cast<int32_t>(p.a_dist));
+    // the lane's table offset, opaque so that the compiler keeps it in
+    // a register and does not rebuild it from the thread index
+    int32_t lt_off = HOT_INTS + slot * LANE_INTS;
+    asm volatile("" : "+r"(lt_off));
+    const int32_t* lt = hot + lt_off;
+    const int32_t a_dist = static_cast<int32_t>(p.a_dist);
+    const LaneTree lit{lt + L_LIT, lt + L_ROWS, p.syms[0] + 256 * i, 256};
+    const LaneTree cmd{lt + L_CMD, lt + L_ROWS + ROW_INTS,
+                       p.syms[1] + 704 * i, 704};
+    const LaneTree dst{lt + L_DIST, lt + L_ROWS + 2 * ROW_INTS,
+                       p.syms[2] + a_dist * i, a_dist};
     const int32_t mlen = p.mlen[i], window = p.window[i];
     const int32_t npostfix = p.npostfix[i], ndirect = p.ndirect[i];
     const int32_t out_prefix = p.out_prefix[i];
@@ -222,149 +262,174 @@ decode_step_kernel(const Params p) {
     const int32_t s_cmd = static_cast<int32_t>(p.s_cmd);
     uint8_t* lits = p.lits + i * p.s_lit;
     int32_t* cmds = p.cmds + i * p.s_cmd * 3;
+    // opaque, so that the compiler keeps the two pointers in registers
+    // and does not rebuild them from the parameters at every store
+    asm volatile("" : "+l"(lits), "+l"(cmds));
 
-    int32_t bit = p.bit0[i], phase = PH_CMD, out_len = 0;
+    // The row as aligned 8-byte words, the index clamped to the row's
+    // last word.  The wrapper pads each row to L >= its length + 7 with
+    // copies of its last byte (decode_gpu._padded_rows), so that last
+    // word holds only such copies: every byte past the batch's row
+    // length reads as its last byte, as the plain version's clamp gives.
+    const uint64_t* row = reinterpret_cast<const uint64_t*>(p.data + i * p.L);
+    const int32_t wlast = static_cast<int32_t>(p.L / 8 - 1);
+    int32_t bit = p.bit0[i];
+    // the words wb, wb + 1, wb + 2 of the row; bit - 64 wb is in [0, 64)
+    int32_t wb = bit >> 6;
+    uint64_t q0 = __ldg(row + min(wb, wlast));
+    uint64_t q1 = __ldg(row + min(wb + 1, wlast));
+    uint64_t q2 = __ldg(row + min(wb + 2, wlast));
+
+    int32_t phase = PH_CMD, out_len = 0;
     int32_t ins_code = 0, cpy_code = 0, ins_rem = 0, cur_ins = 0;
     int32_t copy_len = 0, impl = 0, nlit = 0, ncmd = 0;
-    int32_t cache[4];
-    for (int k = 0; k < 4; ++k) cache[k] = p.cache0[4 * i + k];
+    int32_t c0 = p.cache0[4 * i], c1 = p.cache0[4 * i + 1];
+    int32_t c2 = p.cache0[4 * i + 2], c3 = p.cache0[4 * i + 3];
+
+    // moves to bit `nbit`; a step consumes at most 57 bits, so at most
+    // one word is used up, and the word then loaded is needed one step
+    // later at the earliest
+    auto advance = [&](int32_t nbit) {
+        bit = nbit;
+        if ((nbit >> 6) > wb) {
+            ++wb;
+            q0 = q1;
+            q1 = q2;
+            q2 = __ldg(row + min(wb + 2, wlast));
+        }
+    };
 
     int64_t step = 0;
     for (; step < p.max_steps && phase < PH_DONE; ++step) {
-        // 64-bit window at `bit`, bytes clipped to the row
-        uint32_t lo = 0, hi = 0;
-        const int64_t byte = bit >> 3;
-        for (int b = 0; b < 4; ++b) {
-            const int64_t j0 = byte + b, j1 = byte + 4 + b;
-            lo |= static_cast<uint32_t>(
-                      row[j0 < 0 ? 0 : (j0 > last ? last : j0)])
-                  << (8 * b);
-            hi |= static_cast<uint32_t>(
-                      row[j1 < 0 ? 0 : (j1 > last ? last : j1)])
-                  << (8 * b);
-        }
-        const uint32_t sh = static_cast<uint32_t>(bit & 7);
-        const uint32_t w_lo = shr_or(lo, hi, sh);
-        const uint32_t w_hi = sh ? hi >> sh : hi;
+        // 64-bit window at `bit`, its top (bit & 7) bits 0 as the byte
+        // window of the plain version leaves them
+        const uint32_t off = static_cast<uint32_t>(bit - (wb << 6));
+        uint64_t w = off ? (q0 >> off) | (q1 << (64u - off)) : q0;
+        w &= ~0ull >> (bit & 7);
+        const uint32_t w_lo = static_cast<uint32_t>(w);
 
-        const bool is_cmd = phase == PH_CMD, is_ext = phase == PH_EXTRAS;
-        const bool is_lit = phase == PH_LIT, is_dst = phase == PH_DIST;
-
-        // command symbol, extras fused when they fit
-        int32_t c_sym = 0, c_bits = 0, n_ins = 0, n_cpy = 0, n_impl = 0;
-        bool c_bad = false;
-        if (is_cmd) {
-            tree_decode(cmd, w_lo, c_sym, c_bits, c_bad);
-            c_sym = clampi(c_sym, 0, 703);
-            n_ins = __ldg(tab + T_CMD2INS + c_sym);
-            n_cpy = __ldg(tab + T_CMD2CPY + c_sym);
-            n_impl = __ldg(tab + T_IMPL0 + c_sym);
-        }
-        const int32_t ic_eff = is_cmd ? n_ins : ins_code;
-        const int32_t cc_eff = is_cmd ? n_cpy : cpy_code;
-        const int32_t base_off = is_cmd ? c_bits : 0;
-        const int32_t iebits = __ldg(tab + T_INS_EXTRA + ic_eff);
-        const int32_t cebits = __ldg(tab + T_CPY_EXTRA + cc_eff);
-        const bool fits = base_off + iebits + cebits <= 57;
-        const int32_t v_ins = static_cast<int32_t>(
-            mask(shifted64(w_lo, w_hi, base_off), iebits));
-        const int32_t v_cpy = static_cast<int32_t>(
-            mask(shifted64(w_lo, w_hi, base_off + iebits), cebits));
-        const int32_t e_ins_len = __ldg(tab + T_INS_BASE + ic_eff) + v_ins;
-        const int32_t e_cpy_len = __ldg(tab + T_CPY_BASE + cc_eff) + v_cpy;
-        const int32_t e_bits = iebits + cebits;
-
-        // up to 3 literals from one window
-        const bool take2 = is_lit && ins_rem >= 2;
-        const bool take3 = is_lit && ins_rem >= 3;
-        int32_t l_sym = 0, l_bits = 0, l_sym2 = 0, l_bits2 = 0;
-        int32_t l_sym3 = 0, l_bits3 = 0;
-        bool l_bad = false, l_bad2 = false, l_bad3 = false;
-        if (is_lit) {
-            tree_decode(lit, w_lo, l_sym, l_bits, l_bad);
-            if (take2)
-                tree_decode(lit, shifted64(w_lo, w_hi, l_bits), l_sym2,
-                            l_bits2, l_bad2);
-            if (take3)
-                tree_decode(lit, shifted64(w_lo, w_hi, l_bits + l_bits2),
-                            l_sym3, l_bits3, l_bad3);
-        }
-        const int32_t nl = int32_t(is_lit) + int32_t(take2) + int32_t(take3);
-        const int32_t lit_bits = l_bits + l_bits2 + l_bits3;
-
+        // The lane's phase.  A step that cannot end in a copy (literals
+        // of the command are left, the command's extras did not fit or
+        // its insert is not done) moves only the position, the counts
+        // and the phase, and ends here; the others (the last literals
+        // of a command, a command with no insert, a DIST step) go on to
+        // the copy below.
+        int32_t nbit, f_off = 0;
+        bool bad, e_over = false, is_dst = false;
         Dist dd{0, 0, 0, false};
-        if (is_dst)
-            dd = dist_decode(dst, tab, cache, npostfix, ndirect, w_lo, w_hi);
-
-        const bool ext_eff = (is_cmd && fits) || is_ext;
-        const int32_t consumed =
-            is_cmd ? c_bits + (fits ? e_bits : 0)
-                   : (is_ext ? e_bits
-                             : (is_lit ? lit_bits : (is_dst ? dd.bits : 0)));
-        int32_t nbit = bit + consumed;
-        bool bad = (is_cmd && c_bad) || l_bad || l_bad2 || l_bad3 ||
-                   (is_dst && dd.bad);
-
-        const int32_t mrem = mlen - out_len;
-        if (is_cmd) {
-            ins_code = n_ins;
-            cpy_code = n_cpy;
-            impl = n_impl;
+        if (phase == PH_LIT) {
+            // up to 3 literals from one window (writes clipped, in order)
+            bool b;
+            int32_t e = tree_decode<LIT_BITS, false>(lit, tab, w_lo, b);
+            lits[clampi(nlit, 0, s_lit - 1)] = static_cast<uint8_t>(e >> 5);
+            int32_t lit_bits = e & 15, nl_step = 1;
+            bad = b;
+            if (ins_rem >= 2) {
+                e = tree_decode<LIT_BITS, false>(
+                    lit, tab, static_cast<uint32_t>(w >> lit_bits), b);
+                lits[clampi(nlit + 1, 0, s_lit - 1)] =
+                    static_cast<uint8_t>(e >> 5);
+                lit_bits += e & 15;
+                bad = bad || b;
+                nl_step = 2;
+                if (ins_rem >= 3) {
+                    e = tree_decode<LIT_BITS, false>(
+                        lit, tab, static_cast<uint32_t>(w >> lit_bits), b);
+                    lits[clampi(nlit + 2, 0, s_lit - 1)] =
+                        static_cast<uint8_t>(e >> 5);
+                    lit_bits += e & 15;
+                    bad = bad || b;
+                    nl_step = 3;
+                }
+            }
+            nlit += nl_step;
+            out_len += nl_step;
+            ins_rem -= nl_step;
+            nbit = bit + lit_bits;
+            if (ins_rem != 0) {
+                phase = (bad || nlit > s_lit || ncmd > s_cmd) ? PH_FALLBACK
+                                                              : PH_LIT;
+                advance(nbit);
+                continue;
+            }
+            f_off = lit_bits;
+        } else if (phase == PH_DIST) {
+            dd = dist_decode(dst, hot, c0, c1, c2, c3, npostfix, ndirect, w);
+            nbit = bit + dd.bits;
+            bad = dd.bad;
+            is_dst = true;
+        } else {
+            // command symbol, extras fused when they fit; or the extras
+            // alone
+            const bool is_cmd = phase == PH_CMD;
+            int32_t c_bits = 0;
+            bad = false;
+            if (is_cmd) {
+                const int32_t e =
+                    tree_decode<CMD_BITS, true>(cmd, tab, w_lo, bad);
+                c_bits = e & 15;
+                impl = (e >> 15) & 1;
+                ins_code = (e >> 16) & 31;
+                cpy_code = (e >> 21) & 31;
+            }
+            const int32_t ip = hot[H_INS + ins_code];
+            const int32_t cp = hot[H_CPY + cpy_code];
+            const int32_t iebits = ip & 31, cebits = cp & 31;
+            const int32_t e_bits = iebits + cebits;
+            const bool ext_eff = !is_cmd || c_bits + e_bits <= 57;
+            nbit = bit + c_bits + (ext_eff ? e_bits : 0);
+            if (ext_eff) {
+                const int32_t e_ins_len = (ip >> 5) + static_cast<int32_t>(
+                    mask(static_cast<uint32_t>(w >> c_bits), iebits));
+                e_over = e_ins_len > mlen - out_len;
+                ins_rem = e_ins_len;
+                cur_ins = e_ins_len;
+                copy_len = (cp >> 5) + static_cast<int32_t>(mask(
+                    static_cast<uint32_t>(w >> (c_bits + iebits)), cebits));
+            }
+            if (!(ext_eff && !e_over && ins_rem == 0)) {
+                bad = bad || e_over || nlit > s_lit || ncmd > s_cmd;
+                phase = bad ? PH_FALLBACK : (ext_eff ? PH_LIT : PH_EXTRAS);
+                advance(nbit);
+                continue;
+            }
+            f_off = c_bits + e_bits;
         }
-        const bool e_over = ext_eff && e_ins_len > mrem;
-        if (ext_eff) {
-            ins_rem = e_ins_len;
-            cur_ins = e_ins_len;
-            copy_len = e_cpy_len;
-        }
 
-        // emit the literals (writes clipped to the buffer, in order)
-        if (is_lit) lits[clampi(nlit, 0, s_lit - 1)] = uint8_t(l_sym);
-        if (take2) lits[clampi(nlit + 1, 0, s_lit - 1)] = uint8_t(l_sym2);
-        if (take3) lits[clampi(nlit + 2, 0, s_lit - 1)] = uint8_t(l_sym3);
-        nlit += nl;
-        out_len += nl;
-        ins_rem -= nl;
-
-        const bool lit_done = (is_lit && ins_rem == 0) ||
-                              (ext_eff && !e_over && e_ins_len == 0);
+        // the copy: the command's literals are all out, or a DIST step
+        const bool lit_done = !is_dst;
         const bool block_end = lit_done && out_len == mlen;
         const bool use_impl = lit_done && !block_end && impl == 1;
-        const int32_t impl_dist = cache[0];
 
         // the distance fused into this step, where the window covers it
+        // (past 42 bits in it never fuses, so it is not decoded)
         const bool want_f = lit_done && !block_end && impl == 0;
         bool is_fdst = false;
         Dist fd{0, 0, 0, false};
-        if (want_f) {
-            const int32_t f_off =
-                is_cmd ? c_bits + e_bits : (is_ext ? e_bits : lit_bits);
-            const bool k32 = f_off >= 32;
-            const uint32_t lo2 = k32 ? w_hi : w_lo, hi2 = k32 ? 0u : w_hi;
-            const uint32_t kk = static_cast<uint32_t>(f_off & 31);
-            fd = dist_decode(dst, tab, cache, npostfix, ndirect,
-                             shr_or(lo2, hi2, kk), kk ? hi2 >> kk : hi2);
-            is_fdst = !fd.bad && f_off <= 42 && f_off + fd.bits <= 57;
+        if (want_f && f_off <= 42) {
+            fd = dist_decode(dst, hot, c0, c1, c2, c3, npostfix, ndirect,
+                             w >> f_off);
+            is_fdst = !fd.bad && f_off + fd.bits <= 57;
         }
         const int32_t max_dist = min(out_len + out_prefix, window);
 
         // copy: implicit, fused or DIST step; past max_dist it is a
         // static-dictionary word of the transform's output length
         const bool is_copy = use_impl || is_dst || is_fdst;
-        const int32_t eff_dist =
-            is_dst ? dd.d : (is_fdst ? fd.d : impl_dist);
+        const int32_t eff_dist = is_dst ? dd.d : (is_fdst ? fd.d : c0);
         const bool is_dictref = is_copy && eff_dist > max_dist;
-        const int32_t word_id = eff_dist - max_dist - 1;
-        const bool cl_ok = copy_len >= 4 && copy_len <= 24;
-        const int32_t cl_idx = clampi(copy_len, 0, 24);
-        const int32_t sb = __ldg(tab + T_DICT_SBITS + cl_idx);
-        const int32_t transform = sb < 31 ? (word_id >> sb) : 121;
-        const bool dict_ok =
-            is_dictref && cl_ok && transform < 121 && word_id >= 0;
-        const int32_t dict_add = __ldg(
-            tab + T_DICT_OUTLEN + 25 * clampi(transform, 0, 120) + cl_idx);
-        const bool dict_bad = is_dictref && !dict_ok;
-        const int32_t adv = is_dictref ? dict_add : copy_len;
+        int32_t adv = copy_len;
+        bool dict_bad = false;
+        if (is_dictref) {
+            const int32_t word_id = eff_dist - max_dist - 1;
+            const bool cl_ok = copy_len >= 4 && copy_len <= 24;
+            const int32_t cl_idx = clampi(copy_len, 0, 24);
+            const int32_t sb = hot[H_DICT_SBITS + cl_idx];
+            const int32_t transform = sb < 31 ? (word_id >> sb) : 121;
+            dict_bad = !(cl_ok && transform < 121 && word_id >= 0);
+            adv = __ldg(tab + T_DICT_OUTLEN +
+                        25 * clampi(transform, 0, 120) + cl_idx);
+        }
         const bool c_over = is_copy && !dict_bad && adv > mlen - out_len;
 
         const bool emit_cmd = block_end || (is_copy && !dict_bad && !c_over);
@@ -381,34 +446,30 @@ decode_step_kernel(const Params p) {
         // ring cache: push on explicit non-dictionary non-zero codes
         if (((is_dst && dd.dcode != 0) || (is_fdst && fd.dcode != 0)) &&
             !is_dictref && !c_over) {
-            cache[3] = cache[2];
-            cache[2] = cache[1];
-            cache[1] = cache[0];
-            cache[0] = eff_dist;
+            c3 = c2;
+            c2 = c1;
+            c1 = c0;
+            c0 = eff_dist;
         }
         if (is_fdst) nbit += fd.bits;
 
-        bad = bad || e_over || dict_bad || c_over || nlit > s_lit ||
-              ncmd > s_cmd;
+        bad = bad || dict_bad || c_over || nlit > s_lit || ncmd > s_cmd;
         const bool done_now = emit_cmd && out_len == mlen;
-        int32_t nphase =
-            (is_cmd && !fits)
-                ? PH_EXTRAS
-                : (ext_eff && !lit_done)
-                      ? PH_LIT
-                      : (lit_done && !block_end && impl == 0) ? PH_DIST
-                                                              : phase;
+        int32_t nphase = want_f ? PH_DIST : phase;
         if (is_copy && !dict_bad && !c_over && !done_now) nphase = PH_CMD;
         if (done_now || block_end) nphase = PH_DONE;
         if (bad) nphase = PH_FALLBACK;
         phase = nphase;
-        bit = nbit;
+        advance(nbit);
     }
     p.nlit[i] = nlit;
     p.ncmd[i] = ncmd;
     p.end_bit[i] = bit;
     p.status[i] = phase;
-    for (int k = 0; k < 4; ++k) p.cache[4 * i + k] = cache[k];
+    p.cache[4 * i] = c0;
+    p.cache[4 * i + 1] = c1;
+    p.cache[4 * i + 2] = c2;
+    p.cache[4 * i + 3] = c3;
     p.steps[i] = static_cast<int32_t>(step);
 }
 
@@ -433,13 +494,15 @@ step_probe_kernel(const int32_t* __restrict__ tab,
 }  // namespace
 
 // Launches decode_step_kernel on `stream` (a cudaStream_t).  ptrs holds
-// the kNumPtrs device pointers and sizes the 6 sizes of Params, in its
-// field order (host arrays).  Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for arguments the kernel does
-// not take.
+// the kNumPtrs device pointers and sizes the kNumSizes sizes of Params,
+// in its field order (host arrays), then the plan of
+// ops/decode_gpu.py:decode_step_plan: lanes (= warps) a CTA, CTAs,
+// dynamic shared bytes.  Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int decode_step_launch(const int64_t* ptrs, const int64_t* sizes,
-                                  int n_ptrs, void* stream) {
-    if (n_ptrs != kNumPtrs) return static_cast<int>(cudaErrorInvalidValue);
+                                  int n_ptrs, int n_sizes, void* stream) {
+    if (n_ptrs != kNumPtrs || n_sizes != kNumSizes)
+        return static_cast<int>(cudaErrorInvalidValue);
     Params p;
     int k = 0;
     auto next = [&]() { return reinterpret_cast<void*>(ptrs[k++]); };
@@ -452,13 +515,9 @@ extern "C" int decode_step_launch(const int64_t* ptrs, const int64_t* sizes,
     p.out_prefix = static_cast<const int32_t*>(next());
     p.cache0 = static_cast<const int32_t*>(next());
     p.table = static_cast<const int32_t*>(next());
-    for (int t = 0; t < 3; ++t) {
-        p.tree[t].first = static_cast<const int32_t*>(next());
-        p.tree[t].limit = static_cast<const int32_t*>(next());
-        p.tree[t].offset = static_cast<const int32_t*>(next());
-        p.tree[t].syms = static_cast<const int32_t*>(next());
-        p.tree[t].single = static_cast<const int32_t*>(next());
-    }
+    p.lane_tab = static_cast<const int32_t*>(next());
+    for (int t = 0; t < 3; ++t)
+        p.syms[t] = static_cast<const int32_t*>(next());
     p.lits = static_cast<uint8_t*>(next());
     p.cmds = static_cast<int32_t*>(next());
     p.nlit = static_cast<int32_t*>(next());
@@ -473,13 +532,26 @@ extern "C" int decode_step_launch(const int64_t* ptrs, const int64_t* sizes,
     p.max_steps = sizes[3];
     p.s_lit = sizes[4];
     p.s_cmd = sizes[5];
-    if (p.n <= 0 || p.L <= 0 || p.a_dist < 1 || p.s_lit < 1 ||
-        p.s_cmd < 1 || p.s_lit > INT32_MAX || p.s_cmd > INT32_MAX ||
-        p.n > (int64_t(1) << 30))
+    const int64_t per_cta = sizes[6], ctas = sizes[7], smem = sizes[8];
+    const bool aligned =
+        (reinterpret_cast<uintptr_t>(p.data) | reinterpret_cast<uintptr_t>(
+             p.table) | reinterpret_cast<uintptr_t>(p.lane_tab)) % 16 == 0;
+    if (p.n <= 0 || p.L < 16 || p.L % 16 || p.L > (int64_t(1) << 28) ||
+        p.a_dist < 1 || p.s_lit < 1 || p.s_cmd < 1 ||
+        p.s_lit > INT32_MAX || p.s_cmd > INT32_MAX ||
+        p.n > (int64_t(1) << 30) || !aligned || per_cta < 1 ||
+        per_cta * 32 > MAX_THREADS || ctas * per_cta < p.n ||
+        (ctas - 1) * per_cta >= p.n ||
+        smem != 4 * (HOT_INTS + per_cta * LANE_INTS) || smem > MAX_SMEM)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int threads = 32;
-    const int64_t blocks = (p.n + threads - 1) / threads;
-    decode_step_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+    p.lanes_per_cta = static_cast<int32_t>(per_cta);
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_step_kernel<<<static_cast<unsigned>(ctas),
+                         static_cast<unsigned>(per_cta * 32),
+                         static_cast<size_t>(smem),
                          static_cast<cudaStream_t>(stream)>>>(p);
     return static_cast<int>(cudaGetLastError());
 }

@@ -10,14 +10,17 @@ resolves the bytes).  The host keeps the header walk before and the LZ
 execution after (decode/batch_gpu.py).
 
 `batch_decode_device` builds the trees with torch ops and, on CUDA
-tensors, launches the per-lane step loop in csrc/decode_step.cu (built
-with nvcc for sm_90a at first use, loaded with ctypes); on CPU tensors
+tensors, each lane's Huffman root tables (`build_tree_lut`) and the
+launch grid (`decode_step_plan`), and launches the per-lane step loop
+in csrc/decode_step.cu (built with nvcc for sm_90a at first use,
+loaded with ctypes); on CPU tensors
 it runs the plain PyTorch version `batch_decode_ref`, which advances
 every live lane by one step per iteration exactly as the JAX package's
 `lax.while_loop` body does.  `step_probe` is the exact function of the
 TPU probe research/decode_step_kernel_probe.py's Pallas kernel, with
 `step_probe_ref` beside it.  LAUNCHES counts kernel launches under
-"decode_step" and "step_probe".
+"decode_step" and "step_probe"; LAST_PLAN holds the grid of the last
+decode_step launch.
 
 Unsigned 32-bit bit windows are carried in int64 with & 0xFFFFFFFF in
 the plain version (torch has no uint32 shifts on the CPU); lane state
@@ -52,11 +55,14 @@ _CHECK_EVERY = 16
 #: kernel launches, under "decode_step" and "step_probe"; reset and
 #: read by callers that check a run went through the kernels
 LAUNCHES: dict[str, int] = {}
+#: decode_step_plan's grid of the last decode_step launch, with its
+#: lane count under "lanes"
+LAST_PLAN: dict = {}
 
 
 def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.decode_step_launch.argtypes = [vp, vp, ci, vp]
+    lib.decode_step_launch.argtypes = [vp, vp, ci, ci, vp]
     lib.decode_step_launch.restype = ci
     lib.step_probe_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
     lib.step_probe_launch.restype = ci
@@ -88,11 +94,17 @@ def _dict_len_tables():
 
 
 # the kernel's constant table: (name, length) in the order of
-# csrc/decode_step.cu's T_* offsets
-_TABLE_LAYOUT = [("ins_base", 24), ("ins_extra", 24), ("cpy_base", 24),
-                 ("cpy_extra", 24), ("cmd2ins", 704), ("cmd2cpy", 704),
-                 ("implicit0", 704), ("sc_idx", 16), ("sc_delta", 16),
-                 ("dict_sbits", 25), ("dict_outlen", 121 * 25)]
+# csrc/decode_step.cu's T_* offsets.  Its first HOT_INTS entries are
+# what a step reads, staged in each CTA's shared memory: the insert and
+# copy length codes packed as base << 5 | extra bits, the short
+# distance codes and the dictionary's size bits.  The rest is read from
+# global memory on the rare paths (a command code longer than its root
+# table, a static-dictionary reference).
+_TABLE_LAYOUT = [("ins_pack", 24), ("cpy_pack", 24), ("sc_idx", 16),
+                 ("sc_delta", 16), ("dict_sbits", 25), ("hot_pad", 23),
+                 ("cmd2ins", 704), ("cmd2cpy", 704), ("implicit0", 704),
+                 ("dict_outlen", 121 * 25)]
+HOT_INTS = 128
 
 
 def _tables_np() -> dict[str, np.ndarray]:
@@ -111,12 +123,19 @@ def _tables_np() -> dict[str, np.ndarray]:
 def _kernel_table(dev: torch.device) -> torch.Tensor:
     """The constant tables as one int32 array on `dev`."""
     t = _tables_np()
+    t["ins_pack"] = (np.asarray(t["ins_base"], np.int64) << 5) \
+        | t["ins_extra"]
+    t["cpy_pack"] = (np.asarray(t["cpy_base"], np.int64) << 5) \
+        | t["cpy_extra"]
+    t["hot_pad"] = np.zeros(23, np.int64)
     parts = []
     for name, n in _TABLE_LAYOUT:
         if len(t[name]) != n:
             raise RuntimeError(f"decode table {name} has {len(t[name])} "
                                f"entries, want {n}")
         parts.append(np.asarray(t[name], np.int32))
+    if sum(n for _, n in _TABLE_LAYOUT[:6]) != HOT_INTS:
+        raise RuntimeError("decode table: the hot part is not HOT_INTS")
     return torch.from_numpy(np.concatenate(parts)).to(dev)
 
 
@@ -190,6 +209,145 @@ def _tree_decode(tree, w_lo):
     nbits = torch.where(sgl >= 0, 0, nbits)
     bad = torch.where(sgl >= 0, False, bad)
     return sym, nbits, bad
+
+
+# ---------------------------------------------------------------------------
+# Root tables: what the kernel reads in place of the 15-length compare
+# ---------------------------------------------------------------------------
+
+#: root-table bits of the literal, command and distance trees.  On the
+#: serving batch's lanes codes longer than these carry about 0.5%, 2%
+#: and 0.5% of the symbols (research/root_bits.py); a longer table costs
+#: shared memory and staging, a shorter one the long-code rule more
+#: often.
+LUT_BITS = (9, 10, 8)
+#: an entry's flag: no code of at most the table's bits matches
+LUT_LONG = 1 << 4
+ROW_INTS = 48   # a tree's first, limit and offset rows, 16 ints each
+#: ints of a lane's table: the three root tables, then the three trees'
+#: rows (csrc/decode_step.cu's LANE_INTS)
+LANE_INTS = sum(1 << b for b in LUT_BITS) + 3 * ROW_INTS
+
+
+@functools.lru_cache(maxsize=None)
+def _lut_cand(bits: int, dev: torch.device) -> torch.Tensor:
+    """[2**bits, bits]: root index v's candidate at length l + 1."""
+    v = torch.arange(1 << bits, device=dev)
+    return _bitrev15(v)[:, None] >> (14 - torch.arange(bits, device=dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _cmd_codes(dev: torch.device) -> torch.Tensor:
+    """int64 [704]: a command symbol's implicit-distance flag << 15,
+    insert code << 16 and copy code << 21."""
+    t = _tables_np()
+    codes = (np.asarray(t["implicit0"], np.int64) << 15) \
+        | (np.asarray(t["cmd2ins"], np.int64) << 16) \
+        | (np.asarray(t["cmd2cpy"], np.int64) << 21)
+    return torch.from_numpy(codes).to(dev)
+
+
+def build_tree_lut(tree: dict, bits: int, cmd: bool = False
+                   ) -> torch.Tensor:
+    """Root table of `tree` (build_tree_device's rows): int32 [N,
+    2**bits], indexed by the next `bits` window bits (LSB first).  Where
+    a code of length k <= bits matches (the first such length, as
+    _tree_decode finds it; its candidate depends on the first k bits
+    only), the entry is k | sym << 5; a one-symbol tree gives sym with
+    0 bits everywhere; elsewhere it is LUT_LONG, and the decoder goes on
+    with the compare rule from length bits + 1.  A command tree's entry
+    also carries the symbol's insert code << 16, copy code << 21 and
+    implicit-distance flag << 15 (sym then takes bits 5-14)."""
+    first, limit = tree["first"].long(), tree["limit"].long()
+    a = tree["syms"].shape[1]
+    cand = _lut_cand(bits, first.device)                   # [V, bits]
+    ok = (cand[None] < limit[:, None, :bits]) \
+        & (cand[None] >= first[:, None, :bits])            # [N, V, bits]
+    l_idx = torch.argmax(ok.to(torch.int32), dim=2)        # first True
+    c = cand.gather(1, l_idx.T).T
+    pos = tree["offset"].long().gather(1, l_idx) + c - first.gather(1, l_idx)
+    sym = tree["syms"].long().gather(1, pos.clamp(0, a - 1))
+    nbits = l_idx + 1
+    long = ~ok.any(2)
+    sgl = tree["single"].long()[:, None]
+    sym = torch.where(sgl >= 0, sgl, sym)
+    nbits = torch.where(sgl >= 0, 0, nbits)
+    long = long & (sgl < 0)
+    entry = nbits | (sym << 5)
+    if cmd:
+        entry = entry | _cmd_codes(sym.device)[sym.clamp(0, 703)]
+    return torch.where(long, LUT_LONG, entry).to(torch.int32)
+
+
+def lut_tree_decode_ref(lut: torch.Tensor, tree: dict, bits: int, w_lo,
+                        cmd: bool = False):
+    """Plain version of the kernel's table decode, one symbol per lane
+    from the low bits of w_lo (int64 holding u32): the root entry, and
+    for LUT_LONG the compare rule from length bits + 1 (none found is
+    bad and reads the length-1 slot).  Returns (symbol, bits consumed,
+    bad), and for a command table also (insert code, copy code,
+    implicit flag).  Held against _tree_decode in the tests; no path
+    runs it."""
+    e = lut.long().gather(1, (w_lo & ((1 << bits) - 1))[:, None])[:, 0]
+    long = (e & LUT_LONG) != 0
+    r = _bitrev15(w_lo & 0x7FFF)
+    cand = r[:, None] >> (14 - torch.arange(15, device=w_lo.device))
+    first = tree["first"].long()
+    ok = (cand < tree["limit"]) & (cand >= first)
+    ok[:, :bits] = False
+    found = ok.any(1)
+    l_idx = torch.where(found, torch.argmax(ok.to(torch.int32), dim=1), 0)
+    li = l_idx[:, None]
+    c = cand.gather(1, li)[:, 0]
+    pos = tree["offset"].long().gather(1, li)[:, 0] + c \
+        - first.gather(1, li)[:, 0]
+    pos = pos.clamp(0, tree["syms"].shape[1] - 1)
+    l_sym = tree["syms"].long().gather(1, pos[:, None])[:, 0]
+    sym = torch.where(long, l_sym, (e >> 5) & 1023 if cmd else e >> 5)
+    nbits = torch.where(long, l_idx + 1, e & 15)
+    bad = long & ~found
+    if not cmd:
+        return sym, nbits, bad
+    e = torch.where(long, _cmd_codes(w_lo.device)[sym.clamp(0, 703)], e)
+    return sym, nbits, bad, (e >> 16) & 31, (e >> 21) & 31, (e >> 15) & 1
+
+
+def lane_tables(trees) -> torch.Tensor:
+    """The kernel's per-lane table, int32 [N, LANE_INTS]: the literal,
+    command and distance root tables, then each tree's first, limit and
+    offset rows padded to 16.  A CTA copies its lanes' rows into shared
+    memory as they are."""
+    parts = [build_tree_lut(t, b, cmd=k == 1)
+             for k, (t, b) in enumerate(zip(trees, LUT_BITS))]
+    for t in trees:
+        for key in ("first", "limit", "offset"):
+            parts.append(torch.nn.functional.pad(t[key], (0, 1)))
+    return torch.cat(parts, dim=1).contiguous()
+
+
+#: warps a decode_step CTA holds at most
+PLAN_MAX_WARPS = 8
+#: dynamic shared bytes a CTA can have on an H100
+SMEM_MAX = 232448
+assert 4 * (HOT_INTS + PLAN_MAX_WARPS * LANE_INTS) <= SMEM_MAX
+
+
+def decode_step_plan(n: int, sms: int) -> dict:
+    """decode_step's grid on n lanes and a card of `sms` SMs, the one
+    place it is decided: one lane a warp (the rest of the warp only
+    stages), so that each lane's phase branches are its own (the faster
+    placement on an H100, PERF.md); `lanes_per_cta` warps a CTA, at most
+    PLAN_MAX_WARPS and at most the lanes an SM gets when every SM has a
+    CTA (n // sms, at least 1), so that n >= sms gives every SM a CTA;
+    `smem_bytes` of dynamic shared memory hold the hot constants and
+    each lane's table."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"decode_step_plan: no plan for {n} lanes, {sms} "
+                         f"SMs")
+    lanes = min(PLAN_MAX_WARPS, max(1, n // sms))
+    return dict(lanes_per_cta=lanes, threads=32 * lanes,
+                ctas=-(-n // lanes),
+                smem_bytes=4 * (HOT_INTS + lanes * LANE_INTS))
 
 
 # ---------------------------------------------------------------------------
@@ -525,17 +683,40 @@ def batch_decode_device(data, bit0, mlen, window, npostfix, ndirect, cache0,
     return _decode_step_cuda(*args)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _padded_rows(data: torch.Tensor) -> torch.Tensor:
+    """data [N, L] as [N, Lp], Lp the multiple of 16 at or above L + 7,
+    each row's bytes past L - 1 set to its byte L - 1.  The kernel reads
+    a row as aligned 8-byte words with the word index clamped to the
+    row's last word, which then holds only copies of byte L - 1: so
+    every byte past L - 1, in the padding or beyond the row, reads as
+    byte L - 1, as the byte window of the plain version clamps it."""
+    n, L = data.shape
+    lp = -(-(L + 7) // 16) * 16
+    out = torch.empty((n, lp), dtype=torch.uint8, device=data.device)
+    out[:, :L] = data
+    out[:, L:] = data[:, L - 1:L]
+    return out
+
+
 def _decode_step_cuda(data, bit0, mlen, window, npostfix, ndirect, cache0,
                       lit_len, cmd_len, dist_len, out_prefix, max_steps,
                       s_lit, s_cmd, steps_out):
-    n, L = data.shape
+    """The kernel launch, on decode_step_plan's grid (kept in
+    LAST_PLAN)."""
+    n = data.shape[0]
     dev = data.device
     lib = LIB.get()
     i32 = torch.int32
     trees = [build_tree_device(x) for x in (lit_len, cmd_len, dist_len)]
     ins = [x.to(i32).contiguous() for x in
            (bit0, mlen, window, npostfix, ndirect, out_prefix, cache0)]
-    data = data.contiguous()
+    rows = _padded_rows(data)
+    plan = decode_step_plan(n, _sm_count(dev.index or 0))
     lits = torch.zeros((n, s_lit), dtype=torch.uint8, device=dev)
     cmds = torch.zeros((n, s_cmd, 3), dtype=i32, device=dev)
     outs = [torch.empty(n, dtype=i32, device=dev) for _ in range(4)]
@@ -543,20 +724,22 @@ def _decode_step_cuda(data, bit0, mlen, window, npostfix, ndirect, cache0,
     steps = steps_out if steps_out is not None else \
         torch.empty(n, dtype=i32, device=dev)
     # pointers and sizes in the order of csrc/decode_step.cu's Params
-    ptrs = [data] + ins + [_kernel_table(dev)]
-    for tr in trees:
-        ptrs += [tr["first"], tr["limit"], tr["offset"], tr["syms"],
-                 tr["single"]]
+    ptrs = [rows] + ins + [_kernel_table(dev), lane_tables(trees)]
+    ptrs += [tr["syms"] for tr in trees]
     ptrs += [lits, cmds, *outs, cache, steps]
-    sizes = [n, L, trees[2]["syms"].shape[1], max_steps, s_lit, s_cmd]
+    sizes = [n, rows.shape[1], trees[2]["syms"].shape[1], max_steps, s_lit,
+             s_cmd, plan["lanes_per_cta"], plan["ctas"], plan["smem_bytes"]]
     p_arr = (ctypes.c_int64 * len(ptrs))(*[x.data_ptr() for x in ptrs])
     s_arr = (ctypes.c_int64 * len(sizes))(*sizes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.decode_step_launch(p_arr, s_arr, len(ptrs), stream)
+        err = lib.decode_step_launch(p_arr, s_arr, len(ptrs), len(sizes),
+                                     stream)
     if err != 0:
         raise RuntimeError(f"decode_step_launch failed: CUDA error {err}")
     LAUNCHES["decode_step"] = LAUNCHES.get("decode_step", 0) + 1
+    LAST_PLAN.clear()
+    LAST_PLAN.update(plan, lanes=n)
     nlit, ncmd, end_bit, status = outs
     return lits, nlit, cmds, ncmd, end_bit, status, cache
 

@@ -7,7 +7,9 @@ Builds the native runtime (native/*.cpp, g++) and the CUDA kernels
 (brotli_tpu_torch/csrc/fold.cu, match_rounds.cu, decode_step.cu and
 radix_probe.cu, nvcc for sm_90a) side by side, reads the fewest
 instructions one step of decode_step executes from its SASS (cuobjdump;
-the operation count of its bound), makes a 32 MiB corpus from a seed
+its bound counts the fewer of this and DS_STEP_INSNS, the first port's
+floor), makes a
+32 MiB corpus from a seed
 (brotli_tpu_torch/research/corpus.py: text files of the repo that the
 port leaves unchanged, zipf-distributed words, structured records with
 noise, slowly varying integers, random bytes), then:
@@ -29,8 +31,12 @@ noise, slowly varying integers, random bytes), then:
                 decoder's symbol loop) on 64 lanes of <= 8 KiB from
                 every stream source (compress_fast q1, native q3,
                 compress_gpu q3 with static-dictionary references, a
-                lane with flipped bits), at the full step cap and at a
-                small one: each equal to its plain version
+                lane with flipped bits, lanes with codes longer than
+                the kernel's root tables), at the full step cap and at
+                a small one: each equal to its plain version; with
+                decode_step's plan as launched (lanes a CTA, CTAs,
+                shared bytes) and microseconds a step of the longest
+                lane
   path phase    on the whole corpus at lgwin 22: compress_gpu at q5,
                 q7 and q9; compress_fast at q0 and q1; compress_gpu
                 max_device at q5 and q9.  Each path's launch counters
@@ -46,9 +52,14 @@ noise, slowly varying integers, random bytes), then:
                 q11, context-modeled, all decoded on the host), slices
                 of the corpus's first 24 MiB; outputs equal inputs,
                 n_device is 1024 / 8 / 0 and decode_step launches once
-                per device round; prints decoded MB/s, kernel ms per
-                round, steps per lane and the share of the call spent
-                waiting on the device; then decode_step against its
+                per device round; prints decoded MB/s, each round's ms
+                (CUDA events, the wrapper's host work included) and
+                its kernel's device ms (the round's launch again,
+                profiled), steps per lane, microseconds a step of the
+                longest lane on device time, the plan launched and
+                the share of the call spent waiting on the device;
+                then decode_step
+                against its
                 plain version in all seven outputs and the step counts
                 on all 1024 of the serving batch's lanes, with the
                 arrays, step cap and buffer sizes the path gives it
@@ -76,7 +87,8 @@ noise, slowly varying integers, random bytes), then:
 Every row of the kernels line carries ms, device_ms, burst_ms and
 device_bound_share (bound_ms / device_ms: a cold L2 keeps it at or
 under 1); the gathers' rows also library_device_ms, library_burst_ms,
-host_us, library_host_us and grid.  The line before the last is
+host_us, library_host_us and grid; decode_step's also grid (its
+plan), per_step_us, sass_step_floor and bound_ms_at_360.  The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 without CUDA, or without the package beside this script, it exits
@@ -96,8 +108,11 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-from brotli_tpu_torch.research.devtime import (device_times, host_us,
-                                               median_ms)
+from brotli_tpu_torch.research.decode_batches import (
+    DECODE_SPAN, MULTI_STREAMS, SERVE_BYTES, SERVE_STREAMS, lanes_of,
+    multi_round_batch, native_encoder, serving_batch)
+from brotli_tpu_torch.research.devtime import (device_ms, device_times,
+                                               host_us, median_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROW = 4_194_304 + 524_288   # halo + span of one lgwin-22 dispatch
@@ -112,11 +127,14 @@ DS_SRC = "brotli_tpu_torch/csrc/decode_step.cu"
 DS_REPLACES = "brotli_tpu/ops/decode_tpu.py:450"
 SP_REPLACES = "research/decode_step_kernel_probe.py:94"
 RP_SRC = "brotli_tpu_torch/csrc/radix_probe.cu"
+# the fewest instructions one trip of the first port's decode_step loop
+# executes (sass_step_floor of csrc/decode_step.cu at commit 9b1ccfd,
+# built for an H100).  decode_step's bound counts the fewer of this and
+# the current build's own floor a step, so that it stays a lower bound
+# for the function; the bound at this fixed count is printed beside it.
+DS_STEP_INSNS = 360
 RADIX_MIB = 5               # the probes' N = 5,242,880 bytes
 PROBE_LANES, PROBE_STEPS = 128, 2048
-DECODE_SPAN = 24 << 20      # the corpus's repo text, prose and records
-SERVE_STREAMS, SERVE_BYTES = 1024, 1 << 16
-MULTI_STREAMS, MULTI_BYTES = 8, 8 << 20
 FALLBACK_STREAMS = 16
 SHARD = 1 << 22             # compress_fast's shard
 CORPUS_MIB = 32
@@ -175,8 +193,7 @@ def build_all() -> str:
             m = re.search(r"Compiling entry function '(\w+)'", ln)
             if m:
                 fn = _kernel_name(m.group(1))
-            elif "registers" in ln or ("spill" in ln and
-                                       " 0 bytes spill stores" not in ln):
+            elif "registers" in ln or "stack frame" in ln:
                 log(f"  ptxas {k} {fn}:", ln.strip().removeprefix(
                     "ptxas info    : "))
     return done["decode_step.cu"][0][0]
@@ -559,27 +576,6 @@ def profile_phase(corpus, dev, quality=9, mib=8):
             f"{e.key[:90]}")
 
 
-def _native_encoder():
-    """BrotliEncoderCompress of the port's native runtime (native/capi.cpp)
-    as enc(data, quality) -> bytes."""
-    from brotli_tpu_torch import native_bridge as nb
-    lib = ctypes.CDLL(nb.build())
-    fn = lib.BrotliEncoderCompress
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_size_t,
-                   ctypes.c_char_p, ctypes.POINTER(ctypes.c_size_t),
-                   ctypes.c_char_p]
-
-    def enc(data: bytes, quality: int) -> bytes:
-        cap = len(data) + (len(data) >> 2) + 1024
-        out = ctypes.create_string_buffer(cap)
-        size = ctypes.c_size_t(cap)
-        if fn(quality, 22, 0, len(data), data, ctypes.byref(size), out) != 1:
-            raise AssertionError(f"BrotliEncoderCompress q{quality} failed")
-        return out.raw[:size.value]
-    return enc
-
-
 def _bound(nbytes: float, nops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / INT_OPS_PER_S * 1e3
@@ -750,18 +746,6 @@ def radix_phase(dev):
     return kernels
 
 
-def _lanes_of(streams):
-    from brotli_tpu_torch.decode import batch_gpu as B
-    lanes = []
-    for s in streams:
-        plan, _ = B._try_parse_stream(s)
-        if plan is None:
-            raise AssertionError("a stream meant for the device is not "
-                                 "eligible")
-        lanes += [seg for kind, seg in plan if kind == "lane"]
-    return lanes
-
-
 def _dict_refs(cmds, ncmd) -> int:
     """Commands whose distance reaches past the output so far, counting
     copies at their copy length (exact up to the first dictionary
@@ -802,12 +786,14 @@ def _decode_compare(lanes, dev, max_steps=None, what=""):
     return got, ks, args, (cap, s_lit, s_cmd), plain_ms
 
 
-def _decode_timing(got, steps, args, sizes, per_step, reps=15):
+def _decode_timing(got, steps, args, sizes, step_insns, reps=15):
     """decode_step's kernel ms (CUDA events, median of `reps`), its
-    device and burst times (device_times) and bound
-    on `args`: the stream bytes the lanes read and the literals and
-    commands they write, against this run's steps times `per_step`, the
-    fewest instructions a step of the kernel executes (sass_step_floor)."""
+    device and burst times (device_times), its microseconds a step of
+    the longest lane (device time), and its bound on `args`: the stream
+    bytes the lanes read and the literals and commands they write,
+    against this run's steps times `step_insns`, the fewest a step of
+    any build is shown to need (the dict's bound_ms_at_360 counts
+    DS_STEP_INSNS)."""
     from brotli_tpu_torch.ops import decode_gpu as D
     ms = median_ms(lambda: D.batch_decode_device(*args, *sizes), reps)
     dt = device_times(lambda: D.batch_decode_device(*args, *sizes),
@@ -817,18 +803,28 @@ def _decode_timing(got, steps, args, sizes, per_step, reps=15):
     nlit, ncmd = int(got[1].long().sum()), int(got[3].long().sum())
     nbytes = read + nlit + 12 * ncmd
     nsteps = int(steps.long().sum())
-    nops = per_step * nsteps
+    nops = step_insns * nsteps
     bound_ms, by = _bound(nbytes, nops)
-    return ms, dt, bound_ms, by, (f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} "
-                                  f"G instructions: {per_step} a step x "
-                                  f"{nsteps} steps")
+    bound_360 = _bound(nbytes, DS_STEP_INSNS * nsteps)[0]
+    per_step_us = dt["device_ms"] * 1e3 / int(steps.max())
+    return ms, dict(dt, per_step_us=per_step_us,
+                    bound_ms_at_360=bound_360), bound_ms, by, (
+        f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} G instructions: "
+        f"{step_insns} a step x {nsteps} steps; at {DS_STEP_INSNS} a step "
+        f"{bound_360:.4f} ms")
 
 
-def decode_kernel_phase(corpus, dev, enc, per_step):
+def _plan_text(p: dict) -> str:
+    """A decode_step launch's plan (decode_gpu.LAST_PLAN)."""
+    return (f"plan 1 lane a warp, {p['lanes_per_cta']} lanes a CTA, "
+            f"{p['ctas']} CTAs, {p['smem_bytes']} shared bytes")
+
+
+def decode_kernel_phase(corpus, dev, enc, step_insns):
     """decode_step against its plain version on 64 lanes of <= 8 KiB from
     every stream source, at the full step cap and at a small one;
     returns the kernel's and the plain version's ms and the bound on
-    these lanes."""
+    these lanes (`step_insns` instructions a step)."""
     import numpy as np
 
     from brotli_tpu_torch import compress_fast, compress_gpu
@@ -860,12 +856,12 @@ def decode_kernel_phase(corpus, dev, enc, per_step):
     # random bytes (the header, and so the lane, is unchanged)
     flip_at = len(streams)
     base = enc(piece(8192), 3)
-    (lane,) = _lanes_of([base])
+    (lane,) = lanes_of([base])
     cut = lane.bit0 // 8 + 16
     noise = rng.integers(0, 256, len(base) - cut, dtype=np.uint8)
     streams.append(base[:cut] + (np.frombuffer(base[cut:], np.uint8)
                                  ^ noise).tobytes())
-    lanes = _lanes_of(streams)
+    lanes = lanes_of(streams)
     if len(lanes) != 64:
         raise AssertionError(f"decode kernel phase: {len(lanes)} lanes")
     got, steps, args, sizes, plain_ms = _decode_compare(lanes, dev,
@@ -877,6 +873,13 @@ def decode_kernel_phase(corpus, dev, enc, per_step):
             (status == D.PH_DONE).sum() != 63:
         raise AssertionError(f"decode kernel phase: statuses {status}, "
                              f"{refs} dictionary references")
+    # lanes with codes longer than the kernel's root tables, which take
+    # the compare rule past them
+    n_long = sum(any(int(max(x)) > b for x, b in zip(
+        (ln.lit_len, ln.cmd_len, ln.dist_len), D.LUT_BITS)) for ln in lanes)
+    if n_long == 0:
+        raise AssertionError("decode kernel phase: no lane has a code "
+                             "longer than its root table")
     small = int(steps.float().median()) // 2
     got2, _, _, _, _ = _decode_compare(lanes, dev, max_steps=small,
                                        what=f"max_steps {small}")
@@ -884,44 +887,40 @@ def decode_kernel_phase(corpus, dev, enc, per_step):
     if cut_lanes == 0:
         raise AssertionError("decode kernel phase: no lane hit the cap")
     ms, dt, bound_ms, by, work = _decode_timing(got, steps, args, sizes,
-                                                per_step)
+                                                step_insns)
     log(f"kernel decode_step: equal to batch_decode_ref in all seven "
         f"outputs on 64 lanes of <= 8 KiB (cap {cap}: 63 done, the "
         f"flipped lane falls back with status {status[flip_at]}, the "
-        f"dictionary lane has static-dictionary references; steps per lane "
-        f"{int(steps.min())}..{int(steps.max())}) and at cap {small} "
-        f"({cut_lanes} lanes cut); kernel {ms:.3f} ms (device "
-        f"{dt['device_ms']:.3f}, burst {dt['burst_ms']:.3f}), plain "
-        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({by}: {work})")
+        f"dictionary lane has static-dictionary references, {n_long} lanes "
+        f"have codes longer than the root tables {D.LUT_BITS}; steps per "
+        f"lane {int(steps.min())}..{int(steps.max())}) and at cap {small} "
+        f"({cut_lanes} lanes cut); {_plan_text(D.LAST_PLAN)}; kernel "
+        f"{ms:.3f} ms (device {dt['device_ms']:.3f}, burst "
+        f"{dt['burst_ms']:.3f}, {dt['per_step_us']:.4f} us a step of the "
+        f"longest lane), plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms "
+        f"({by}: {work})")
     return dict(lanes64_ms=ms, lanes64_plain_ms=plain_ms,
                 lanes64_bound_ms=bound_ms,
                 lanes64_device_ms=dt["device_ms"],
-                lanes64_burst_ms=dt["burst_ms"])
+                lanes64_burst_ms=dt["burst_ms"],
+                lanes64_per_step_us=dt["per_step_us"])
 
 
-def decode_path_phase(corpus, dev, enc, per_step):
+def decode_path_phase(corpus, dev, enc, step_insns):
     """decompress_batch_gpu on the serving, multi-round and fallback
     batches, then decode_step against its plain version on the serving
     batch's lanes; returns the kernel's and the plain version's ms and
-    the bound there, and the launches of decode_step on the path."""
-    import numpy as np
+    the bound there (`step_insns` instructions a step), and the
+    launches of decode_step on the path."""
     import torch
 
-    from brotli_tpu_torch import compress_fast, decompress_batch_gpu
+    from brotli_tpu_torch import decompress_batch_gpu
     from brotli_tpu_torch.decode import batch_gpu as B
     from brotli_tpu_torch.ops import decode_gpu as D
 
     t0 = time.perf_counter()
-    stride = (DECODE_SPAN - SERVE_BYTES) // (SERVE_STREAMS - 1)
-    serve_in = [corpus[k * stride:k * stride + SERVE_BYTES]
-                for k in range(SERVE_STREAMS)]
-    serve = [compress_fast(p, lgwin=22, quality=1, device=dev)
-             if k % 2 == 0 else enc(p, 3) for k, p in enumerate(serve_in)]
-    stride = (DECODE_SPAN - MULTI_BYTES) // (MULTI_STREAMS - 1)
-    multi_in = [corpus[k * stride:k * stride + MULTI_BYTES]
-                for k in range(MULTI_STREAMS)]
-    multi = [compress_fast(p, lgwin=22, quality=1, device=dev)
-             for p in multi_in]
+    serve, serve_in = serving_batch(corpus, enc, dev)
+    multi, multi_in = multi_round_batch(corpus, dev)
     text_span = DECODE_SPAN // 3   # the repo-text part
     stride = (text_span - SERVE_BYTES) // (FALLBACK_STREAMS - 1)
     fall_in = [corpus[k * stride:k * stride + SERVE_BYTES]
@@ -934,8 +933,8 @@ def decode_path_phase(corpus, dev, enc, per_step):
         f"(serving {sum(map(len, serve))} bytes, multi-round "
         f"{sum(map(len, multi))}, fallback {sum(map(len, fall))})")
 
-    # the device wrapper, timed with CUDA events; the host waits from
-    # its launch to the end of the kernel
+    # the device wrapper, timed with CUDA events (its host work
+    # included); the host waits from its launch to the end of the kernel
     run = B.batch_decode_device
     rounds = []
 
@@ -951,7 +950,8 @@ def decode_path_phase(corpus, dev, enc, per_step):
         b.synchronize()
         rounds.append(dict(lanes=n, ms=a.elapsed_time(b),
                            wait_s=time.perf_counter() - t,
-                           steps=steps.cpu().numpy()))
+                           steps=steps.cpu().numpy(),
+                           plan=dict(D.LAST_PLAN), call=(args, kw)))
         return out
 
     decompress_batch_gpu(serve[:4], device=dev)  # warm: load, first launch
@@ -976,9 +976,20 @@ def decode_path_phase(corpus, dev, enc, per_step):
                                      f"{len(rounds)} rounds")
             launches += n_launch
             wait = sum(r["wait_s"] for r in rounds)
+            # each round's kernel again, for its device time (CUPTI,
+            # median of 3, cold L2): per_step_us of the round
+            for r in rounds:
+                args, kw = r.pop("call")
+                r["device_ms"] = device_ms(lambda: run(*args, **kw),
+                                           "decode_step_kernel", reps=3)
             per_round = ", ".join(
-                f"{r['ms']:.3f} ms on {r['lanes']} lanes (steps per lane "
-                f"mean {r['steps'].mean():.0f}, max {r['steps'].max()})"
+                f"{r['ms']:.3f} ms on {r['lanes']} lanes, the wrapper's "
+                f"host work included (device {r['device_ms']:.3f} ms; "
+                f"steps per lane mean {r['steps'].mean():.0f}, max "
+                f"{r['steps'].max()}; per_step_us "
+                f"{r['device_ms'] * 1e3 / max(int(r['steps'].max()), 1):.4f}"
+                f" a step of the longest lane on device time; "
+                f"{_plan_text(r['plan'])})"
                 for r in rounds) or "no device round"
             log(f"path decode {what}: {sum(map(len, inputs)) / wall / 1e6:.2f}"
                 f" MB/s decoded ({len(streams)} streams, "
@@ -992,24 +1003,27 @@ def decode_path_phase(corpus, dev, enc, per_step):
     # the kernel against its plain version on the serving batch's lanes,
     # with the arrays, step cap and buffer sizes the path gave it
     t = time.perf_counter()
-    lanes = _lanes_of(serve)
+    lanes = lanes_of(serve)
     got, steps, args, sizes, plain_ms = _decode_compare(
         lanes, dev, what="serving batch")
     status = got[5].cpu().numpy()
     if (status != D.PH_DONE).any():
         raise AssertionError("decode_step: a serving lane did not finish")
     ms, dt, bound_ms, by, work = _decode_timing(got, steps, args, sizes,
-                                                per_step)
+                                                step_insns)
+    plan = dict(D.LAST_PLAN)
     log(f"kernel decode_step: equal to batch_decode_ref in all seven "
         f"outputs and the step counts on the serving batch ({len(lanes)} "
         f"lanes, L {args[0].shape[1]}, cap {sizes[0]}, s_lit {sizes[1]}, "
         f"s_cmd {sizes[2]}; steps per lane mean "
         f"{float(steps.float().mean()):.0f} max {int(steps.max())}); "
-        f"kernel {ms:.3f} ms (device {dt['device_ms']:.3f}, burst "
-        f"{dt['burst_ms']:.3f}), plain {plain_ms:.1f} ms, bound "
-        f"{bound_ms:.4f} ms ({by}: {work}; {time.perf_counter() - t:.1f} s)")
+        f"{_plan_text(plan)}; kernel {ms:.3f} ms (device "
+        f"{dt['device_ms']:.3f}, burst {dt['burst_ms']:.3f}, "
+        f"{dt['per_step_us']:.4f} us a step of the longest lane), plain "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({by}: {work}; "
+        f"{time.perf_counter() - t:.1f} s)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                max_abs_err=0, **dt), launches
+                max_abs_err=0, grid=plan, **dt), launches
 
 
 def _profile_decode(streams, dev, rows=10):
@@ -1068,25 +1082,28 @@ def main() -> int:
     t0 = time.perf_counter()
     ds_lib = build_all()
     log(f"build wall: {time.perf_counter() - t0:.1f} s")
-    per_step, n_insns = sass_step_floor(ds_lib)
+    floor, n_insns = sass_step_floor(ds_lib)
+    step_insns = min(floor, DS_STEP_INSNS)
     log(f"sass decode_step_kernel: {n_insns} instructions; one trip of the "
-        f"step loop executes at least {per_step}")
+        f"step loop executes at least {floor} (the bound counts "
+        f"{step_insns} a step, the fewer of this and {DS_STEP_INSNS})")
     corpus = make_corpus(CORPUS_MIB, SEED)
     log(f"corpus: {len(corpus)} bytes, seed {SEED}")
 
-    enc = _native_encoder()
+    enc = native_encoder()
 
     t0 = time.perf_counter()
     timings = kernel_phase(corpus, dev)
     mr_timing = match_rounds_phase(corpus, dev)
     sp_timings = step_probe_phase(dev)
-    ds_lanes64 = decode_kernel_phase(corpus, dev, enc, per_step)
+    ds_lanes64 = decode_kernel_phase(corpus, dev, enc, step_insns)
     log(f"kernel phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = path_phase(corpus, dev)
     log(f"path phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    ds_serving, ds_launches = decode_path_phase(corpus, dev, enc, per_step)
+    ds_serving, ds_launches = decode_path_phase(corpus, dev, enc,
+                                                step_insns)
     log(f"decode path phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cpu_check(corpus, dev)
@@ -1119,7 +1136,8 @@ def main() -> int:
         raise AssertionError("decode_step: no launch on its path")
     kernels.append(dict(name="decode_step", route="cuda", source=DS_SRC,
                         replaces=DS_REPLACES, launches=ds_launches,
-                        library_ms=None, **ds_serving, **ds_lanes64))
+                        library_ms=None, sass_step_floor=floor,
+                        **ds_serving, **ds_lanes64))
     for reads, t in sp_timings.items():
         kernels.append(dict(name=f"step_probe reads={reads}", route="cuda",
                             source=DS_SRC, replaces=SP_REPLACES,

@@ -175,6 +175,99 @@ def test_decode_step_kernel_matches_ref():
     assert status.count(D.PH_DONE) == 15
 
 
+def _edge_lanes():
+    """The 16 lanes of _decode_streams (the second one's bits flipped)
+    and 3 of native q3 streams of 32 KiB of in-repo text, whose trees
+    have codes longer than the kernel's root tables."""
+    import os
+
+    from brotli_tpu_torch.research.decode_batches import (lanes_of,
+                                                          native_encoder)
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "native", "decoder.cpp")
+    with open(path, "rb") as f:
+        text = f.read()
+    enc = native_encoder()
+    streams = _decode_streams(16, seed=40)
+    streams += [enc(text[k << 15:(k + 1) << 15], 3) for k in range(3)]
+    return lanes_of(streams)
+
+
+def _kernel_equals_ref(lanes, max_steps=None):
+    """The kernel against batch_decode_ref in all seven outputs and the
+    step counts."""
+    dev = _card()
+    args, cap, s_lit, s_cmd = B.lane_arrays(lanes, dev)
+    cap = cap if max_steps is None else max_steps
+    n = len(lanes)
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
+    before = D.LAUNCHES.get("decode_step", 0)
+    got = D._decode_step_cuda(*args, cap, s_lit, s_cmd, steps)
+    assert D.LAUNCHES["decode_step"] == before + 1
+    ref_steps = torch.zeros_like(steps)
+    want = D.batch_decode_ref(*args, cap, s_lit, s_cmd, steps_out=ref_steps)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(steps, ref_steps)
+    return got, steps
+
+
+def _one_symbol_lanes():
+    """Lanes of repetitive inputs, whose trees have one symbol (0-bit
+    codes) in every kind."""
+    from brotli_tpu_torch.research.decode_batches import (lanes_of,
+                                                          native_encoder)
+    enc = native_encoder()
+    inputs = [b"a" * 5000, b"ab" * 4000, b"abcd" * 3000]
+    lanes = lanes_of([enc(d, q) for d in inputs for q in (1, 3)]
+                     + [compress_fast(d, device="cpu") for d in inputs])
+    singles = [sum(int((np.asarray(x) > 0).sum()) == 1 for x in
+                   (ln.lit_len, ln.cmd_len, ln.dist_len)) for ln in lanes]
+    assert max(singles) == 3
+    return lanes
+
+
+@pytest.mark.parametrize("case", ["long codes", "half the median steps",
+                                  "a partly empty last CTA",
+                                  "one-symbol trees"])
+def test_decode_step_kernel_edges(case):
+    if case == "one-symbol trees":
+        got, _ = _kernel_equals_ref(_one_symbol_lanes())
+        assert (got[5] == D.PH_DONE).all()
+        return
+    lanes = _edge_lanes()
+    longest = [max(int(max(getattr(ln, k))) - b for ln in lanes)
+               for k, b in zip(("lit_len", "cmd_len", "dist_len"),
+                               D.LUT_BITS)]
+    assert min(longest) > 0   # every tree kind has codes past its table
+    if case == "long codes":
+        got, _ = _kernel_equals_ref(lanes)
+        status = got[5].tolist()
+        assert status[1] != D.PH_DONE
+        assert status.count(D.PH_DONE) == len(lanes) - 1
+    elif case == "half the median steps":
+        _, steps = _kernel_equals_ref(lanes)
+        cap = int(steps.float().median()) // 2
+        got, _ = _kernel_equals_ref(lanes, max_steps=cap)
+        assert int((got[5] < D.PH_DONE).sum()) > 0
+    else:
+        # 8 sms + 5 lanes: 8 lanes a CTA, the last CTA holds 5 of them
+        sms = D._sm_count(_card().index or 0)
+        n = 8 * sms + 5
+        _kernel_equals_ref([lanes[k % 13] for k in range(n)])
+        plan = D.LAST_PLAN
+        assert plan["lanes"] == n and plan["lanes_per_cta"] == 8
+        assert plan["ctas"] == sms + 1
+
+
+def test_decode_step_plan_covers_every_sm():
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = D.decode_step_plan(1024, sms)
+    assert plan["ctas"] >= sms
+
+
 @pytest.mark.parametrize("reads", [0, 1, 2])
 def test_step_probe_kernel_matches_ref(reads):
     dev = _card()
