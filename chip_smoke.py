@@ -25,7 +25,13 @@ noise, slowly varying integers, random bytes), then:
                 median of 15 launches, the L2 flushed by a 128 MiB fill
                 before each), burst_ms (events around 50 back-to-back
                 launches, over 50), the bound, and the plain version's
-                ms.  step_probe (TPU probe #9's
+                ms; each fold's bound counts the (row, offset) pairs its
+                exits leave on these inputs (fold_sorted_exits, which
+                must give fold_sorted_ref's outputs too), with the
+                first port's all-pairs figure beside it, and the fold
+                rows carry the plan launched (fold_cuda.LAST_PLAN) and
+                the kernel's ptxas registers and static shared bytes.
+                step_probe (TPU probe #9's
                 kernel function) at the probe's shape, 128 lanes x 2048
                 steps with 0/1/2 reads, and decode_step (the batch
                 decoder's symbol loop) on 64 lanes of <= 8 KiB from
@@ -86,9 +92,11 @@ noise, slowly varying integers, random bytes), then:
 
 Every row of the kernels line carries ms, device_ms, burst_ms and
 device_bound_share (bound_ms / device_ms: a cold L2 keeps it at or
-under 1); the gathers' rows also library_device_ms, library_burst_ms,
-host_us, library_host_us and grid; decode_step's also grid (its
-plan), per_step_us, sass_step_floor and bound_ms_at_360.  The line before the last is
+under 1); the folds' rows also plan, ptxas, pairs, pairs_share,
+longest_lane_share and bound_ms_all_pairs; the gathers' rows also
+library_device_ms, library_burst_ms, host_us, library_host_us and
+grid; decode_step's also grid (its plan), per_step_us, sass_step_floor
+and bound_ms_at_360.  The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 without CUDA, or without the package beside this script, it exits
@@ -113,10 +121,10 @@ from brotli_tpu_torch.research.decode_batches import (
     multi_round_batch, native_encoder, serving_batch)
 from brotli_tpu_torch.research.devtime import (device_ms, device_times,
                                                host_us, median_ms)
+from brotli_tpu_torch.research.fold_ab import (CONFIGS, ROW, fold_args,
+                                               sorted_ops)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ROW = 4_194_304 + 524_288   # halo + span of one lgwin-22 dispatch
-WINDOW = (1 << 22) - 16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT_OPS_PER_S = 67e12       # non-tensor 32-bit peak (FP32 rate)
 SRC = "brotli_tpu_torch/csrc/fold.cu"
@@ -140,20 +148,6 @@ SHARD = 1 << 22             # compress_fast's shard
 CORPUS_MIB = 32
 SEED = 20261016
 
-# (label, n_keys, n_pay, k_fwd, k_back, fuse_short, the path that
-# launches it: "gpu" = compress_gpu, "max_device" = compress_gpu
-# max_device, None = no path of this script)
-CONFIGS = [
-    ("fold q2-6 exact", 1, 1, 32, 0, False, "gpu"),
-    ("fold q7-8 exact8", 2, 0, 16, 8, False, "gpu"),
-    ("fold q9 main", 2, 2, 16, 8, False, "gpu"),
-    ("fold q9 short", 1, 1, 16, 0, False, "gpu"),
-    ("fold exact9_fused", 2, 2, 16, 8, True, None),
-    ("fold max_device q2-6", 1, 5, 32, 0, False, "max_device"),
-    ("fold max_device q7-9", 1, 5, 16, 0, False, "max_device"),
-]
-
-
 def log(*a):
     print(*a, flush=True)
 
@@ -165,9 +159,10 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def build_all() -> str:
+def build_all():
     """Native runtime and the four CUDA kernel sources, compiled side by
-    side; returns the path of the built decode_step library."""
+    side; returns the paths of the built decode_step and fold
+    libraries."""
     from brotli_tpu_torch import native_bridge as nb
     from brotli_tpu_torch.ops import (decode_gpu, fold_cuda,
                                       match_rounds_cuda, radix_cuda)
@@ -196,7 +191,30 @@ def build_all() -> str:
             elif "registers" in ln or "stack frame" in ln:
                 log(f"  ptxas {k} {fn}:", ln.strip().removeprefix(
                     "ptxas info    : "))
-    return done["decode_step.cu"][0][0]
+    return done["decode_step.cu"][0][0], done["fold.cu"][0][0]
+
+
+def resource_usage(lib_path: str) -> dict:
+    """Each kernel's registers, shared bytes and stack bytes from
+    `cuobjdump -res-usage` of the built library: kernel name
+    (_kernel_name) -> dict.  Its shared bytes (SHARED) are the static
+    shared memory plus the 1 KB an sm_90 CTA reserves; the dynamic
+    bytes are the plan's."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-res-usage", lib_path],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for chunk in text.split("Function ")[1:]:
+        name = _kernel_name(chunk.split(":", 1)[0].strip())
+        rep = {}
+        for key, pat in (("registers", r"REG:(\d+)"),
+                         ("res_shared_bytes", r"SHARED:(\d+)"),
+                         ("stack_bytes", r"STACK:(\d+)")):
+            if (v := re.search(pat, chunk)):
+                rep[key] = int(v.group(1))
+        out[name] = rep
+    return out
 
 
 def _kernel_name(mangled: str) -> str:
@@ -274,7 +292,7 @@ def sass_step_floor(lib_path: str, kernel: str = "decode_step_kernel"):
     raise AssertionError(f"sass: no path around {kernel}'s loop")
 
 
-def kernel_phase(corpus, dev):
+def kernel_phase(corpus, dev, fold_ptxas):
     """Every fold configuration at the path's shape, kernel against the
     plain version on the same inputs."""
     import numpy as np
@@ -285,15 +303,10 @@ def kernel_phase(corpus, dev):
                            .copy()).to(dev)
     results = {}
     for label, n_keys, n_pay, k_fwd, k_back, fuse, _ in CONFIGS:
-        if n_keys == 1:
-            ops = F._sort_v0(row, [F.u32_values_at(row, 4 * r)
-                                   for r in range(1, n_pay + 1)])
-        else:
-            ops = F._sort_v0v1(row, n_pay + 2)
-        args = dict(min_pos=0, n_keys=n_keys, k_fwd=k_fwd, k_back=k_back,
-                    window=WINDOW, lbs=135, len_shift=26, n_real=ROW,
-                    fuse_short=fuse)
+        ops = sorted_ops(row, n_keys, n_pay)
+        args = fold_args(n_keys, k_fwd, k_back, fuse, ROW)
         packed, score = F.fold_sorted(ops, **args)
+        plan = dict(F.LAST_PLAN)
         rp, rs = F.fold_sorted_ref(ops, **args)
         torch.cuda.synchronize()
         if not (torch.equal(packed, rp) and torch.equal(score, rs)):
@@ -305,12 +318,24 @@ def kernel_phase(corpus, dev):
         hits = int((packed != 0).sum())
         if hits == 0:
             raise AssertionError(f"{label}: no matches found")
+        # the pairs the kernel's exits leave (fold_sorted_exits: the same
+        # rule as csrc/fold.cu, and its outputs must be the fold's)
+        ep, es, pairs = F.fold_sorted_exits(ops, **args)
+        if not (torch.equal(ep, rp) and torch.equal(es, rs)):
+            raise AssertionError(f"{label}: fold_sorted_exits != "
+                                 "fold_sorted_ref")
+        n_pairs = int(pairs.sum())
+        # with one lane a row a warp runs as long as its longest lane:
+        # the pairs 32 consecutive rows take then, over all pairs
+        longest = int(pairs[:ROW // 32 * 32].view(-1, 32).max(1).values
+                      .sum()) * 32
         ms = median_ms(lambda: F.fold_sorted(ops, **args), 15)
         dt = device_times(lambda: F.fold_sorted(ops, **args), "fold_kernel")
         plain_ms = median_ms(lambda: F.fold_sorted_ref(ops, **args), 3)
         # bound: each operand read once, two int32 outputs written once;
-        # ~5 integer ops per row and offset for the index and v0 test,
-        # ~20 more where v0 matches (this input's count)
+        # ~20 integer ops for each (row, offset) pair the exits leave.
+        # bound_ms_all_pairs: the first port's count, ~5 ops for every
+        # pair and ~20 more where v0 matches
         nbytes = ROW * (4 * len(ops) + 8)
         idx = torch.arange(ROW, device=dev)
         n_same = 0
@@ -319,20 +344,35 @@ def kernel_phase(corpus, dev):
             ok = (ops[0] == torch.roll(ops[0], j)) & (idx - j >= 0) \
                 & (idx - j < ROW)
             n_same += int(ok.sum())
-        nops = 5 * ROW * (k_fwd + k_back) + 20 * n_same
+        all_ops = 5 * ROW * (k_fwd + k_back) + 20 * n_same
+        nops = 20 * n_pairs
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / INT_OPS_PER_S * 1e3
-        results[label] = dict(ms=ms, plain_ms=plain_ms,
-                              bound_ms=max(t_bytes, t_ops),
-                              bound_by="bytes" if t_bytes >= t_ops
-                              else "operations", max_abs_err=err, **dt)
+        kname = (f"fold_kernel<{n_keys},{n_pay},{int(fuse)},"
+                 f"{int(plan['route'] == 'compact')}>")
+        if "registers" not in fold_ptxas.get(kname, {}):
+            raise AssertionError(f"{label}: no resource usage of {kname} "
+                                 "in the fold library")
+        results[label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_ms_all_pairs=max(t_bytes,
+                                   all_ops / INT_OPS_PER_S * 1e3),
+            pairs=n_pairs, pairs_share=n_pairs / (ROW * (k_fwd + k_back)),
+            longest_lane_share=longest / (ROW * (k_fwd + k_back)),
+            max_abs_err=err, plan=plan,
+            ptxas=dict(kernel=kname, **fold_ptxas[kname]), **dt)
         log(f"kernel {label}: equal to fold_sorted_ref on {ROW} rows "
             f"({hits} matches); kernel {ms:.4f} ms (device "
             f"{dt['device_ms']:.4f}, burst {dt['burst_ms']:.4f}), plain "
-            f"{plain_ms:.3f}"
-            f" ms, bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f}"
-            f" MB, {nops / 1e9:.2f} G int ops)")
-        del ops, packed, score, rp, rs
+            f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G int ops for "
+            f"{n_pairs} pairs the exits leave, "
+            f"{n_pairs / (ROW * (k_fwd + k_back)):.4f} of all, a warp's "
+            f"longest lane {longest / (ROW * (k_fwd + k_back)):.4f}; all "
+            f"pairs {results[label]['bound_ms_all_pairs']:.4f} ms); plan "
+            f"{json.dumps(plan)}; ptxas {json.dumps(results[label]['ptxas'])}")
+        del ops, packed, score, rp, rs, ep, es, pairs
     return results
 
 
@@ -1080,7 +1120,8 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    ds_lib = build_all()
+    ds_lib, fold_lib = build_all()
+    fold_ptxas = resource_usage(fold_lib)
     log(f"build wall: {time.perf_counter() - t0:.1f} s")
     floor, n_insns = sass_step_floor(ds_lib)
     step_insns = min(floor, DS_STEP_INSNS)
@@ -1093,7 +1134,7 @@ def main() -> int:
     enc = native_encoder()
 
     t0 = time.perf_counter()
-    timings = kernel_phase(corpus, dev)
+    timings = kernel_phase(corpus, dev, fold_ptxas)
     mr_timing = match_rounds_phase(corpus, dev)
     sp_timings = step_probe_phase(dev)
     ds_lanes64 = decode_kernel_phase(corpus, dev, enc, step_insns)

@@ -1,7 +1,7 @@
-"""brotli_tpu_torch on the card: the CUDA kernels (fold, match_rounds,
-decode_step, step_probe, the radix probes' five primitives) against
-their plain versions, and the compress and batch-decode paths on CUDA
-against the CPU paths.
+"""brotli_tpu_torch on the card: the CUDA kernels (fold, also at the
+edges of its design, match_rounds, decode_step, step_probe, the radix
+probes' five primitives) against their plain versions, and the
+compress and batch-decode paths on CUDA against the CPU paths.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is
 false.  On a machine with a card:
@@ -22,6 +22,10 @@ from brotli_tpu_torch.ops import decode_gpu as D
 from brotli_tpu_torch.ops import fold_cuda as F
 from brotli_tpu_torch.ops import match_rounds_cuda as MR
 from brotli_tpu_torch.ops import radix_cuda as RC
+
+from .fold_edges import CASES as FOLD_CASES
+from .fold_edges import CONFIGS as FOLD_CONFIGS
+from .fold_edges import edge_case
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +72,38 @@ def test_fold_kernel_matches_ref(config, min_pos):
     assert torch.equal(packed, rp)
     assert torch.equal(score, rs)
     assert int((packed != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("mid", [False, True])
+@pytest.mark.parametrize("case", FOLD_CASES)
+@pytest.mark.parametrize("config", FOLD_CONFIGS)
+def test_fold_kernel_edges(config, case, mid):
+    """The seven folds on inputs at the design's edges (tests/
+    fold_edges.py: a v0 run longer than a tile, runs across tile edges,
+    fewer rows than a tile, a short window, limit capping lengths), at
+    min_pos 0 and mid-row: launched once on fold_plan's grid and equal
+    to the plain version."""
+    dev = _card()
+    n_keys, n_pay, k_fwd, k_back, fuse = config
+    data, window, n_real = edge_case(case)
+    row = torch.from_numpy(data).to(dev)
+    if n_keys == 1:
+        ops = F._sort_v0(row, [F.u32_values_at(row, 4 * r)
+                               for r in range(1, n_pay + 1)])
+    else:
+        ops = F._sort_v0v1(row, n_pay + 2)
+    min_pos = len(data) // 2 if mid else 0
+    kw = dict(n_keys=n_keys, k_fwd=k_fwd, k_back=k_back, window=window,
+              lbs=135, len_shift=26, n_real=n_real, fuse_short=fuse)
+    before = sum(F.LAUNCHES.values())
+    packed, score = F.fold_sorted(ops, min_pos, **kw)
+    assert sum(F.LAUNCHES.values()) == before + 1
+    assert F.LAST_PLAN == F.fold_plan(len(data), n_keys, n_pay, k_fwd,
+                                      k_back, fuse)
+    rp, rs = F.fold_sorted_ref(ops, min_pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, rp)
+    assert torch.equal(score, rs)
 
 
 @pytest.mark.parametrize("quality", [5, 7, 9])
