@@ -56,9 +56,16 @@
 //
 // step_probe_kernel is TPU probe #9's kernel function
 // (research/decode_step_kernel_probe.py:61-82, launched at :94): per
-// lane, `steps` iterations of an LCG step and 0-2 dependent reads from
-// the lane's table row.  One thread per lane; its time per step is this
-// card's figure for the cost model the probe was written to measure.
+// lane, `steps` iterations of an LCG step and READS (0-2) dependent
+// reads from the lane's table row.  The TPU kernel holds the table in
+// VMEM; here each warp stages its lane's row in shared memory with
+// cp.async and its first thread runs the lane's chain on shared reads,
+// the lanes spread over the SMs by ops/decode_gpu.py:step_probe_plan.
+// READS is a template parameter, so a step is straight-line code.
+// Bound: neither bytes nor operations but the latency of one step's
+// dependent chain times the steps; latency_probe_kernel measures the
+// dependent latency in cycles of each instruction on it (one thread,
+// clock64 around loops of each).
 
 #include <cstdint>
 
@@ -473,22 +480,148 @@ decode_step_kernel(const Params p) {
     p.steps[i] = static_cast<int32_t>(step);
 }
 
-__global__ void __launch_bounds__(128)
+constexpr int PROBE_MAX_LANES = 8;     // decode_gpu.PROBE_MAX_LANES
+constexpr int PROBE_ROW_ALIGN = 4096;  // decode_gpu.PROBE_ROW_ALIGN
+
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         bool wide) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    if (wide)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+                     "l"(gmem));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+                     "l"(gmem));
+}
+
+__device__ __forceinline__ uint32_t lds(uint32_t addr) {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+    return v;
+}
+
+// Each lane's row starts on a PROBE_ROW_ALIGN-byte boundary of the
+// shared window (ops/decode_gpu.py:step_probe_plan counts the slack),
+// and the chain carries u = 4 s: the address of row[(s a + c) & 0x3FF] is
+// then ((u a + 4 c) & 0xFFC) | row, one LOP3, and the next u is that
+// address plus 4 acc (its row bits vanish mod 4096 in the next
+// multiply).  A step is IMAD, LOP3, LDS (two issue together), an add of
+// two reads and an IMAD that adds 4 acc to the address; with no read,
+// one IMAD, which the compiler folds four steps at a time
+// (ops/decode_gpu.py:step_latency_path).
+template <int READS>
+__global__ void __launch_bounds__(32 * PROBE_MAX_LANES)
 step_probe_kernel(const int32_t* __restrict__ tab,
                   const int32_t* __restrict__ st, int32_t* __restrict__ out,
-                  int lanes, int width, int steps, int reads) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+                  int lanes, int width, int steps, int per_cta) {
+    extern __shared__ int4 smem[];
+    const int w = threadIdx.x >> 5, t = threadIdx.x & 31;
+    const int lane = blockIdx.x * per_cta + w;
     if (lane >= lanes) return;
-    const int32_t* trow = tab + static_cast<int64_t>(lane) * width;
-    uint32_t s = static_cast<uint32_t>(st[lane]);
-    for (int k = 0; k < steps; ++k) {
-        s = (s * 1103515245u + 12345u) & 0x3FFu;
-        uint32_t acc = 0;
-        for (int r = 0; r < reads; ++r)
-            acc += static_cast<uint32_t>(__ldg(trow + s + r));
-        s = (s + acc) & 0x3FFu;
+    const uint32_t win =
+        static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    const uint32_t stride =
+        (4u * width + PROBE_ROW_ALIGN - 1) & ~(PROBE_ROW_ALIGN - 1u);
+    const uint32_t row = ((win + PROBE_ROW_ALIGN - 1) &
+                          ~(PROBE_ROW_ALIGN - 1u)) + w * stride;
+    if (READS > 0) {
+        // the warp stages its lane's row
+        char* dst = reinterpret_cast<char*>(smem) + (row - win);
+        const int32_t* src = tab + static_cast<int64_t>(lane) * width;
+        const int head =
+            (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? width & ~3 : 0;
+        for (int q = 4 * t; q < head; q += 128)
+            cp_async(dst + 4 * q, src + q, true);
+        for (int q = head + t; q < width; q += 32)
+            cp_async(dst + 4 * q, src + q, false);
+        asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                         : "memory");
+        __syncwarp();
     }
-    out[lane] = static_cast<int32_t>(s);
+    if (t != 0) return;
+    const uint32_t s0 = static_cast<uint32_t>(st[lane]);
+    if (steps == 0) {
+        out[lane] = static_cast<int32_t>(s0);
+        return;
+    }
+    uint32_t u = s0 << 2;
+    for (int k = 0; k < steps; ++k) {
+        const uint32_t x = u * 1103515245u + 4u * 12345u;
+        if (READS == 0) {
+            u = x;
+            continue;
+        }
+        const uint32_t a = (x & 0xFFCu) | row;
+        uint32_t acc = lds(a);
+        if (READS == 2) acc += lds(a + 4);
+        u = a + (acc << 2);
+    }
+    out[lane] = static_cast<int32_t>((u >> 2) & 0x3FFu);
+}
+
+// One thread: for each instruction kind, clock64 around a loop of
+// `iters` trips of LAT_UNROLL dependent instructions of that kind, at
+// two trip counts; cycles[2 * kind + c] the clocks of the short (c = 0)
+// and the long loop (kinds: IMAD, LOP3, IADD3 + LOP3 pairs, LDS).  The
+// loop keeps the clock reads on either side of the chain, and the chain
+// goes on from one timing to the next, so no two chains compute the
+// same.  in holds five words the compiler cannot see; sink takes the
+// chain's end.
+constexpr int LAT_UNROLL = 64, LAT_KINDS = 4;
+
+template <int KIND>
+__device__ __forceinline__ uint32_t lat_chain(uint32_t x, const uint32_t* v) {
+#pragma unroll
+    for (int k = 0; k < LAT_UNROLL; ++k) {
+        if (KIND == 0) {
+            asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(x)
+                         : "r"(v[1]), "r"(v[2]));
+        } else if (KIND == 1) {
+            asm volatile("lop3.b32 %0, %0, %1, %2, 0x96;" : "+r"(x)
+                         : "r"(v[1 + (k & 3)]), "r"(v[1 + ((k + 1) & 3)]));
+        } else if (KIND == 2) {
+            asm volatile("add.u32 %0, %0, %1;" : "+r"(x) : "r"(v[1]));
+            asm volatile("lop3.b32 %0, %0, %1, %2, 0x96;" : "+r"(x)
+                         : "r"(v[1 + (k & 3)]), "r"(v[1 + ((k + 1) & 3)]));
+        } else {
+            asm volatile("ld.volatile.shared.u32 %0, [%0];" : "+r"(x));
+        }
+    }
+    return x;
+}
+
+template <int KIND>
+__device__ __noinline__ uint32_t lat_kind(uint32_t x, const uint32_t* v,
+                                          int iters_short, int iters_long,
+                                          long long* cycles) {
+    for (int rep = 0; rep < 2; ++rep) {   // the first pass warms the code
+        for (int c = 0; c < 2; ++c) {
+            const int iters = c ? iters_long : iters_short;
+            const long long t0 = clock64();
+            for (int it = 0; it < iters; ++it) x = lat_chain<KIND>(x, v);
+            const long long t1 = clock64();
+            cycles[2 * KIND + c] = t1 - t0;
+        }
+    }
+    return x;
+}
+
+__global__ void latency_probe_kernel(const uint32_t* __restrict__ in,
+                                     int iters_short, int iters_long,
+                                     long long* __restrict__ cycles,
+                                     uint32_t* __restrict__ sink) {
+    __shared__ uint32_t self;
+    uint32_t v[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) v[k] = in[k];
+    // the shared word holds its own address: a chase stays on it
+    const uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(&self));
+    self = at;
+    __syncwarp();
+    sink[0] = lat_kind<0>(v[0], v, iters_short, iters_long, cycles);
+    sink[1] = lat_kind<1>(v[0], v, iters_short, iters_long, cycles);
+    sink[2] = lat_kind<2>(v[0], v, iters_short, iters_long, cycles);
+    sink[3] = lat_kind<3>(at, v, iters_short, iters_long, cycles);
 }
 
 }  // namespace
@@ -556,17 +689,72 @@ extern "C" int decode_step_launch(const int64_t* ptrs, const int64_t* sizes,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Launches step_probe_kernel on `stream`: tab int32 [lanes, width], st
-// and out int32 [lanes] (device arrays), width >= 1024 + reads.
+template <int READS>
+cudaError_t launch_probe(const void* tab, const void* st, void* out,
+                         int lanes, int width, int steps, int per_cta,
+                         int ctas, int smem, cudaStream_t stream) {
+    cudaError_t e = cudaFuncSetAttribute(
+        step_probe_kernel<READS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+    step_probe_kernel<READS><<<ctas, 32 * per_cta, smem, stream>>>(
+        static_cast<const int32_t*>(tab), static_cast<const int32_t*>(st),
+        static_cast<int32_t*>(out), lanes, width, steps, per_cta);
+    return cudaGetLastError();
+}
+
+// Launches step_probe_kernel<reads> on `stream`: tab int32 [lanes,
+// width], st and out int32 [lanes] (device arrays), width >= 1024 +
+// reads, reads 0, 1 or 2; per_cta (lanes a CTA), ctas and smem (dynamic
+// shared bytes) are ops/decode_gpu.py:step_probe_plan's.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments or a plan the kernel does not take.
 extern "C" int step_probe_launch(const void* tab, const void* st, void* out,
                                  int lanes, int width, int steps, int reads,
+                                 int per_cta, int ctas, int smem,
                                  void* stream) {
-    if (lanes <= 0 || reads < 0 || width < 1024 + reads || steps < 0)
+    if (lanes <= 0 || reads < 0 || reads > 2 || width < 1024 + reads ||
+        steps < 0 || per_cta < 1 || per_cta > PROBE_MAX_LANES ||
+        static_cast<int64_t>(ctas) * per_cta < lanes ||
+        static_cast<int64_t>(ctas - 1) * per_cta >= lanes ||
+        smem != PROBE_ROW_ALIGN + static_cast<int64_t>(per_cta) *
+                    ((4 * width + PROBE_ROW_ALIGN - 1) / PROBE_ROW_ALIGN) *
+                    PROBE_ROW_ALIGN ||
+        smem > MAX_SMEM)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int threads = 128;
-    step_probe_kernel<<<(lanes + threads - 1) / threads, threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(tab), static_cast<const int32_t*>(st),
-        static_cast<int32_t*>(out), lanes, width, steps, reads);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t e = reads == 0
+        ? launch_probe<0>(tab, st, out, lanes, width, steps, per_cta, ctas,
+                          smem, s)
+        : reads == 1
+        ? launch_probe<1>(tab, st, out, lanes, width, steps, per_cta, ctas,
+                          smem, s)
+        : launch_probe<2>(tab, st, out, lanes, width, steps, per_cta, ctas,
+                          smem, s);
+    return static_cast<int>(e);
+}
+
+// Launches latency_probe_kernel (one thread) on `stream`: in uint32
+// [5], cycles int64 [2 * LAT_KINDS], sink uint32 [LAT_KINDS] (device
+// arrays); each timing runs iters_short and iters_long loop trips of
+// LAT_UNROLL instructions.
+extern "C" int latency_probe_launch(const void* in, int iters_short,
+                                    int iters_long, void* cycles, void* sink,
+                                    void* stream) {
+    if (iters_short < 1 || iters_long <= iters_short)
+        return static_cast<int>(cudaErrorInvalidValue);
+    latency_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(in), iters_short, iters_long,
+        static_cast<long long*>(cycles), static_cast<uint32_t*>(sink));
     return static_cast<int>(cudaGetLastError());
+}
+
+// The SM clock of `device` in kHz (cudaDevAttrClockRate, the clock
+// cudaDeviceProp.clockRate gives), or 0 where the attribute fails.
+extern "C" int sm_clock_khz(int device) {
+    int khz = 0;
+    if (cudaDeviceGetAttribute(&khz, cudaDevAttrClockRate, device) !=
+        cudaSuccess)
+        return 0;
+    return khz;
 }

@@ -18,9 +18,12 @@ it runs the plain PyTorch version `batch_decode_ref`, which advances
 every live lane by one step per iteration exactly as the JAX package's
 `lax.while_loop` body does.  `step_probe` is the exact function of the
 TPU probe research/decode_step_kernel_probe.py's Pallas kernel, with
-`step_probe_ref` beside it.  LAUNCHES counts kernel launches under
-"decode_step" and "step_probe"; LAST_PLAN holds the grid of the last
-decode_step launch.
+`step_probe_ref` beside it, on the grid of `step_probe_plan`, and
+`latency_probe` measures the dependent latency of the instructions on
+its chain.  LAUNCHES counts kernel launches under "decode_step",
+"step_probe" and, by read count, "step_probe_reads<r>"; LAST_PLAN holds
+the grid of the last decode_step launch, LAST_PROBE_PLAN that of the
+last step_probe launch.
 
 Unsigned 32-bit bit windows are carried in int64 with & 0xFFFFFFFF in
 the plain version (torch has no uint32 shifts on the CPU); lane state
@@ -52,20 +55,28 @@ M32 = 0xFFFFFFFF
 # a lane that is no longer live changes nothing)
 _CHECK_EVERY = 16
 
-#: kernel launches, under "decode_step" and "step_probe"; reset and
-#: read by callers that check a run went through the kernels
+#: kernel launches, under "decode_step", "step_probe" and
+#: "step_probe_reads<r>"; reset and read by callers that check a run
+#: went through the kernels
 LAUNCHES: dict[str, int] = {}
 #: decode_step_plan's grid of the last decode_step launch, with its
 #: lane count under "lanes"
 LAST_PLAN: dict = {}
+#: step_probe_plan's grid of the last step_probe launch, with its lanes,
+#: width and reads
+LAST_PROBE_PLAN: dict = {}
 
 
 def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.decode_step_launch.argtypes = [vp, vp, ci, ci, vp]
     lib.decode_step_launch.restype = ci
-    lib.step_probe_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.step_probe_launch.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
     lib.step_probe_launch.restype = ci
+    lib.latency_probe_launch.argtypes = [vp, ci, ci, vp, vp, vp]
+    lib.latency_probe_launch.restype = ci
+    lib.sm_clock_khz.argtypes = [ci]
+    lib.sm_clock_khz.restype = ci
 
 
 LIB = CudaLibrary("decode_step", _bind)
@@ -768,31 +779,134 @@ def step_probe_ref(tab: torch.Tensor, st: torch.Tensor, steps: int,
     return s.to(torch.int32)[None, :]
 
 
+#: most lanes (one a warp) in a step_probe CTA
+PROBE_MAX_LANES = 8
+#: step_probe: each lane's row starts on a boundary of this many bytes in
+#: shared memory (csrc/decode_step.cu PROBE_ROW_ALIGN)
+PROBE_ROW_ALIGN = 4096
+#: the read counts of the probe (P3, P1, P2)
+PROBE_READS = (0, 1, 2)
+
+
+def step_probe_plan(lanes: int, width: int, sms: int) -> dict:
+    """step_probe's grid on `lanes` table rows of `width` int32 and a
+    card of `sms` SMs, the one place it is decided: one lane a warp (its
+    thread 0 runs the chain, the warp stages), `lanes_per_cta` warps a
+    CTA, at most PROBE_MAX_LANES, at most the lanes an SM gets when every
+    SM has a CTA (lanes // sms, at least 1) and at most the rows that fit
+    in a CTA's shared memory; `smem_bytes` hold the CTA's rows, each
+    rounded up to PROBE_ROW_ALIGN bytes, and PROBE_ROW_ALIGN bytes of
+    slack to align the first.  Raises where one row does not fit."""
+    if lanes < 1 or width < 1 or sms < 1:
+        raise ValueError(f"step_probe_plan: no plan for {lanes} lanes of "
+                         f"{width} words on {sms} SMs")
+    stride = -(-4 * width // PROBE_ROW_ALIGN) * PROBE_ROW_ALIGN
+    fit = (SMEM_MAX - PROBE_ROW_ALIGN) // stride
+    if fit < 1:
+        raise ValueError(f"step_probe_plan: a row of {width} int32 does not "
+                         f"fit in {SMEM_MAX} shared bytes")
+    per = min(PROBE_MAX_LANES, max(1, lanes // sms), fit)
+    return dict(lanes_per_cta=per, threads=32 * per, ctas=-(-lanes // per),
+                smem_bytes=PROBE_ROW_ALIGN + per * stride)
+
+
 def step_probe(tab: torch.Tensor, st: torch.Tensor, steps: int,
                reads: int) -> torch.Tensor:
-    """The probe's step loop: one CUDA thread per lane on CUDA tensors,
-    step_probe_ref on CPU tensors."""
+    """The probe's step loop: on CUDA tensors the kernel on
+    step_probe_plan's grid (kept in LAST_PROBE_PLAN), each lane's row in
+    shared memory; step_probe_ref on CPU tensors.  reads is 0, 1 or 2."""
     lanes = tab.shape[0] if tab.dim() == 2 else -1
     if tab.dtype != torch.int32 or st.dtype != torch.int32 \
             or tab.dim() != 2 or st.shape != (1, lanes) \
-            or tab.device != st.device or not 0 <= reads \
+            or tab.device != st.device or reads not in PROBE_READS \
             or tab.shape[1] < 1024 + reads or steps < 0:
         raise ValueError("step_probe: tab must be int32 [lanes, >= 1024 + "
-                         "reads] and st int32 [1, lanes] on one device")
+                         "reads] and st int32 [1, lanes] on one device, "
+                         "reads 0, 1 or 2")
     dev = tab.device
     if dev.type == "cpu":
         return step_probe_ref(tab, st, steps, reads)
     if dev.type != "cuda":
         raise ValueError(f"step_probe: unsupported device {dev}")
+    width = tab.shape[1]
+    plan = step_probe_plan(lanes, width, _sm_count(dev.index or 0))
     lib = LIB.get()
     tab, st = tab.contiguous(), st.contiguous()
     out = torch.empty_like(st)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.step_probe_launch(tab.data_ptr(), st.data_ptr(),
-                                    out.data_ptr(), lanes, tab.shape[1],
-                                    steps, reads, stream)
+                                    out.data_ptr(), lanes, width, steps,
+                                    reads, plan["lanes_per_cta"],
+                                    plan["ctas"], plan["smem_bytes"], stream)
     if err != 0:
         raise RuntimeError(f"step_probe_launch failed: CUDA error {err}")
-    LAUNCHES["step_probe"] = LAUNCHES.get("step_probe", 0) + 1
+    for key in ("step_probe", f"step_probe_reads{reads}"):
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+    LAST_PROBE_PLAN.clear()
+    LAST_PROBE_PLAN.update(plan, lanes=lanes, width=width, reads=reads)
     return out
+
+
+# the instruction kinds latency_probe times, in csrc/decode_step.cu's
+# order; "IADD3" is timed in pairs with a LOP3 (a chain of adds alone
+# may be merged three operands at a time)
+_LAT_KINDS = ("IMAD", "LOP3", "IADD3+LOP3", "LDS")
+_LAT_UNROLL = 64                  # csrc/decode_step.cu LAT_UNROLL
+_LAT_ITERS = (16, 80)             # loop trips of the short and long chain
+
+
+def latency_probe(dev: torch.device) -> dict:
+    """Dependent latency in cycles of IMAD, LOP3, IADD3 and LDS on the
+    card: one thread times loops of 16 and 80 trips of 64 dependent
+    instructions of each kind with clock64 (csrc/decode_step.cu
+    latency_probe_kernel); a kind's latency is the difference over the
+    4,096 instructions between them."""
+    lib = LIB.get()
+    vals = torch.from_numpy(np.array(
+        [7, 0x2545F491, 12345, 0x9E3779B9, 0x85EBCA6B], np.uint32)
+        .view(np.int32)).to(dev)
+    cycles = torch.zeros(2 * len(_LAT_KINDS), dtype=torch.int64, device=dev)
+    sink = torch.zeros(len(_LAT_KINDS), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.latency_probe_launch(vals.data_ptr(), *_LAT_ITERS,
+                                       cycles.data_ptr(), sink.data_ptr(),
+                                       stream)
+    if err != 0:
+        raise RuntimeError(f"latency_probe_launch failed: CUDA error {err}")
+    c = cycles.cpu().tolist()
+    n = (_LAT_ITERS[1] - _LAT_ITERS[0]) * _LAT_UNROLL
+    lat = {k: (c[2 * i + 1] - c[2 * i]) / n
+           for i, k in enumerate(_LAT_KINDS)}
+    lat["IADD3"] = lat.pop("IADD3+LOP3") - lat["LOP3"]
+    return lat
+
+
+def step_latency_path(reads: int) -> list:
+    """The dependent instructions of one step of csrc/decode_step.cu's
+    step_probe_kernel as sm_90a builds it (its SASS, read with cuobjdump): for
+    reads > 0 the LCG's IMAD, the LOP3 that masks it into the row's
+    address, the LDS (two issue together), for two reads the IADD3 of
+    the two, and the IMAD that adds four times the reads to the address;
+    with no read the compiler folds four LCG steps into one IMAD, a
+    quarter of one a step."""
+    if reads == 0:
+        return [("IMAD", 0.25)]
+    return [("IMAD", 1), ("LOP3", 1), ("LDS", 1)] \
+        + [("IADD3", 1)] * (reads - 1) + [("IMAD", 1)]
+
+
+def step_latency_cycles(reads: int, lat: dict) -> float:
+    """Cycles of one probe step's critical path (step_latency_path) at
+    the latencies `lat` (latency_probe)."""
+    return sum(lat[k] * n for k, n in step_latency_path(reads))
+
+
+def sm_clock_khz(index: int) -> int:
+    """The SM clock of CUDA device `index` in kHz, as
+    cudaDeviceProp.clockRate gives it (cudaDevAttrClockRate)."""
+    khz = LIB.get().sm_clock_khz(index)
+    if khz <= 0:
+        raise RuntimeError("sm_clock_khz: cudaDevAttrClockRate failed")
+    return khz

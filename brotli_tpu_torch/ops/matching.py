@@ -103,11 +103,13 @@ def _fold_sorted(h: torch.Tensor, k: int, vs: list, window_size: int,
     """Candidate fold in hash-sorted space: after a stable sort by
     hash, a position's k most recent same-hash predecessors are its k
     left neighbours, so a candidate compare is a shifted-slice compare.
-    The length of offset j is the match_rounds kernel over the sorted
+    The length of offset j is the match_rounds chain over the sorted
     chunk values and their shift by j; rows whose neighbour has another
     hash are zeroed afterwards (the round chain of such a row never
-    counts in the reference, whose chain starts with alive = same)."""
-    from .match_rounds_cuda import match_rounds
+    counts in the reference, whose chain starts with alive = same).
+    The k offsets' lengths come from one launch of the kernel's fold
+    form, which reads the shifted words from va itself."""
+    from .match_rounds_cuda import match_rounds_shifted
 
     n = h.shape[0]
     dev = h.device
@@ -118,15 +120,14 @@ def _fold_sorted(h: torch.Tensor, k: int, vs: list, window_size: int,
     limit_s = n - pos_s
     s_len = s_dist = s_score = torch.zeros(n, dtype=torch.int32,
                                            device=dev)
+    lengths = match_rounds_shifted(va, k)
     for j in range(1, k + 1):
         same = torch.zeros(n, dtype=torch.bool, device=dev)
         same[j:] = h_s[j:] == h_s[:n - j]
         cand = torch.zeros(n, dtype=torch.int32, device=dev)
         cand[j:] = pos_s[:n - j]
         dist = pos_s - cand
-        vb = torch.zeros_like(va)
-        vb[:, j:] = va[:, :n - j]
-        total = torch.where(same, match_rounds(va, vb), 0)
+        total = torch.where(same, lengths[j - 1], 0)
         ml = torch.minimum(total, limit_s)
         # min_pos masks candidates in a zero-filled context halo
         valid = same & (dist <= window_size) & (ml >= 4) \

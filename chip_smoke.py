@@ -16,10 +16,14 @@ noise, slowly varying integers, random bytes), then:
 
   kernel phase  each fold configuration on 4,718,592 sorted rows of
                 the corpus (the row of one 512 KiB span at lgwin 22),
-                and match_rounds at R = 8 on the first 4 MiB shard
-                (the h4 fold's sorted chunk values against their shift
-                by 1, as compress_fast runs it): each kernel must equal
-                its plain version on the card bit for bit; prints
+                and match_rounds at R = 8 on the first 4 MiB shard: the
+                fold form on the h4 order at k = 2 and on the h8 order
+                at k = 1 (as compress_fast runs them), the two-operand
+                form on the h4 order against its shift by 1, each with
+                the plan launched (match_rounds_cuda.LAST_PLAN), and one
+                shard's device matcher by its busy time (devtime.busy_ms):
+                each kernel must equal its plain version on the card bit
+                for bit; prints
                 kernel ms (CUDA events around one launch, median of 15),
                 device_ms (the kernel's own duration from torch.profiler,
                 median of 15 launches, the L2 flushed by a 128 MiB fill
@@ -32,8 +36,15 @@ noise, slowly varying integers, random bytes), then:
                 rows carry the plan launched (fold_cuda.LAST_PLAN) and
                 the kernel's ptxas registers and static shared bytes.
                 step_probe (TPU probe #9's
-                kernel function) at the probe's shape, 128 lanes x 2048
-                steps with 0/1/2 reads, and decode_step (the batch
+                kernel function): the dependent latency of the
+                instructions on its chain (decode_gpu.latency_probe) and
+                the SM clock, the probe's own run (brotli_tpu_torch/
+                research/decode_step_kernel_probe.py, its launches
+                counted), then at the probe's shape, 128 lanes x 2048
+                steps with 0/1/2 reads, with the plan launched
+                (decode_gpu.LAST_PROBE_PLAN) and a latency bound (steps
+                x the cycles of a step's critical path at the SM clock);
+                and decode_step (the batch
                 decoder's symbol loop) on 64 lanes of <= 8 KiB from
                 every stream source (compress_fast q1, native q3,
                 compress_gpu q3 with static-dictionary references, a
@@ -47,7 +58,9 @@ noise, slowly varying integers, random bytes), then:
                 q7 and q9; compress_fast at q0 and q1; compress_gpu
                 max_device at q5 and q9.  Each path's launch counters
                 are set to 0 just before it and read just after, and
-                each path must have launched each of its kernels; every
+                each path must have launched each of its kernels
+                (compress_fast: the fold form of match_rounds twice a
+                full shard, once at k = 2 and once at k = 1); every
                 output must decode back (libbrotlidec when present,
                 else the port's native decoder)
   decode path   decompress_batch_gpu on a serving batch (1024 streams
@@ -96,7 +109,10 @@ under 1); the folds' rows also plan, ptxas, pairs, pairs_share,
 longest_lane_share and bound_ms_all_pairs; the gathers' rows also
 library_device_ms, library_burst_ms, host_us, library_host_us and
 grid; decode_step's also grid (its plan), per_step_us, sass_step_floor
-and bound_ms_at_360.  The line before the last is
+and bound_ms_at_360; match_rounds' also plan and rounds (the fold
+form's also words, bound_ms_two_operand and, at k = 2, the matcher's
+matcher_busy_ms); step_probe's also grid, latency_bound_ms and
+step_cycles.  The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 without CUDA, or without the package beside this script, it exits
@@ -119,8 +135,9 @@ from concurrent.futures import ThreadPoolExecutor
 from brotli_tpu_torch.research.decode_batches import (
     DECODE_SPAN, MULTI_STREAMS, SERVE_BYTES, SERVE_STREAMS, lanes_of,
     multi_round_batch, native_encoder, serving_batch)
-from brotli_tpu_torch.research.devtime import (device_ms, device_times,
-                                               host_us, median_ms)
+from brotli_tpu_torch.research.devtime import (busy_ms, device_ms,
+                                               device_times, host_us,
+                                               median_ms)
 from brotli_tpu_torch.research.fold_ab import (CONFIGS, ROW, fold_args,
                                                sorted_ops)
 
@@ -377,53 +394,98 @@ def kernel_phase(corpus, dev, fold_ptxas):
 
 
 def match_rounds_phase(corpus, dev):
-    """match_rounds at compress_fast's shape: R = 8 rounds of the first
-    shard's sorted chunk values (the h4 fold's order) against their
-    shift by j = 1, kernel against the plain version."""
+    """match_rounds at compress_fast's shape, R = 8 rounds of the first
+    shard's sorted chunk values: the fold form on the h4 order at k = 2
+    and on the h8 order at k = 1 (one launch each, as compress_fast runs
+    them), and the two-operand form on the h4 order against its shift by
+    1; each kernel against its plain version.  Then one shard's device
+    matcher (_gpu_match_compact) by its device busy time.  Returns, per
+    kernel, (its name in the kernels line, its key in
+    match_rounds_cuda.LAUNCHES, its entry)."""
     import numpy as np
     import torch
 
+    from brotli_tpu_torch.encode import fast as FAST
     from brotli_tpu_torch.ops import match_rounds_cuda as MR
-    from brotli_tpu_torch.ops import matching as M
+    from brotli_tpu_torch.research.match_rounds_ab import (FOLDS,
+                                                           rounds_needed,
+                                                           sorted_rounds)
     data = torch.from_numpy(np.frombuffer(corpus[:SHARD], np.uint8)
                             .copy()).to(dev)
-    vs = [M.u32_values_at(data, 4 * r) for r in range(8)]
-    order = torch.argsort(M.mul32(vs[0], M.HASH_MUL32) >> 15, stable=True)
-    va = torch.stack([M.as_i32(v) for v in vs])[:, order]
-    vb = torch.zeros_like(va)
-    vb[:, 1:] = va[:, :-1]
-    del vs, order
-    got = MR.match_rounds(va, vb)
-    want = MR.match_rounds_ref(va, vb)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"match_rounds: kernel != match_rounds_ref "
-                             f"({int((got != want).sum())} lengths differ)")
-    err = int((got.long() - want.long()).abs().max())
-    ms = median_ms(lambda: MR.match_rounds(va, vb), 15)
-    dt = device_times(lambda: MR.match_rounds(va, vb), "match_rounds_kernel")
-    plain_ms = median_ms(lambda: MR.match_rounds_ref(va, vb), 15)
-    # bound: each candidate needs its rounds up to the first unequal one
-    # (8 bytes each) and writes 4 bytes; ~6 integer ops per round read
-    nz = (va ^ vb) != 0
-    first = torch.where(nz.any(0), nz.int().argmax(0) + 1, 8)
-    rounds_read = int(first.sum())
-    m = va.shape[1]
-    nbytes = 8 * rounds_read + 4 * m
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 6 * rounds_read / INT_OPS_PER_S * 1e3
-    hist = torch.bincount(got, minlength=33).tolist()
-    log(f"kernel match_rounds: equal to match_rounds_ref at R=8, M={m} "
-        f"(lengths 0/4/32: {hist[0]}/{hist[4]}/{hist[32]}); kernel "
-        f"{ms:.4f} ms (device {dt['device_ms']:.4f}, burst "
-        f"{dt['burst_ms']:.4f}), plain {plain_ms:.3f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB for "
-        f"{rounds_read} rounds read of {8 * m}; all rounds "
-        f"{(64 * m + 4 * m) / 1e6:.1f} MB = "
-        f"{(68 * m) / HBM_BYTES_PER_S * 1e3:.4f} ms)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=err, **dt)
+    ops = sorted_rounds(data)
+    rounds, m = ops["h4"].shape
+
+    def compare(what, kern, plain, kname):
+        got = kern()
+        plan = dict(MR.LAST_PLAN)
+        want = plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: kernel != plain version "
+                                 f"({int((got != want).sum())} lengths "
+                                 "differ)")
+        err = int((got.long() - want.long()).abs().max())
+        ms = median_ms(kern, 15)
+        dt = device_times(kern, kname)
+        plain_ms = median_ms(plain, 15)
+        return got, plan, dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                               **dt)
+
+    results = []
+    # the fold form: bound = each va word some chain needs, once, and 4k
+    # bytes a row written; bound_ms_two_operand = 8 bytes a needed round
+    # (the two-operand form's reads) and the same writes; ~6 integer ops
+    # a needed round
+    for name, k in FOLDS:
+        va = ops[name]
+        got, plan, t = compare(
+            f"match_rounds_shifted {name} k={k}",
+            lambda va=va, k=k: MR.match_rounds_shifted(va, k),
+            lambda va=va, k=k: MR.match_rounds_shifted_ref(va, k),
+            "match_rounds_shifted_kernel")
+        need, words = rounds_needed(va, k)
+        n_rounds = int(need.sum())
+        bound_ms, by = _bound(4 * words + 4 * k * m, 6 * n_rounds)
+        two_ms = _bound(8 * n_rounds + 4 * k * m, 6 * n_rounds)[0]
+        hist = torch.bincount(got[0], minlength=33).tolist()
+        label = f"match_rounds_shifted k={k}"
+        results.append((label, f"match_rounds_shifted_k{k}", dict(
+            bound_ms=bound_ms, bound_by=by, bound_ms_two_operand=two_ms,
+            plan=plan, words=words, rounds=n_rounds, **t)))
+        log(f"kernel {label}: equal to match_rounds_shifted_ref on the "
+            f"{name} order, R={rounds}, M={m} (j=1 lengths 0/4/32: "
+            f"{hist[0]}/{hist[4]}/{hist[32]}); kernel {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}, burst {t['burst_ms']:.4f}), "
+            f"plain {t['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({by}: "
+            f"{words} words of {rounds * m} some chain needs, "
+            f"{n_rounds} rounds the {k} chains need; two-operand bytes "
+            f"{two_ms:.4f} ms); plan {json.dumps(plan)}")
+
+    # the two-operand form at j = 1: 8 bytes a needed round, 4 written
+    va = ops["h4"]
+    vb = MR.shift_rounds(va, 1)
+    got, plan, t = compare("match_rounds j=1",
+                           lambda: MR.match_rounds(va, vb),
+                           lambda: MR.match_rounds_ref(va, vb),
+                           "match_rounds_kernel")
+    n_rounds = int(rounds_needed(va, 1)[0].sum())
+    bound_ms, by = _bound(8 * n_rounds + 4 * m, 6 * n_rounds)
+    results.append(("match_rounds", "match_rounds", dict(
+        bound_ms=bound_ms, bound_by=by, plan=plan, rounds=n_rounds, **t)))
+    log(f"kernel match_rounds: equal to match_rounds_ref at R={rounds}, "
+        f"M={m}, the h4 order against its shift by 1; kernel "
+        f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}, burst "
+        f"{t['burst_ms']:.4f}), plain {t['plain_ms']:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({by}: {n_rounds} rounds read of {rounds * m});"
+        f" plan {json.dumps(plan)}")
+    del ops, va, vb, got
+
+    # one shard's device matcher, sorts and compaction included
+    busy = busy_ms(lambda: FAST._gpu_match_compact(data, (1 << 22) - 16))
+    log(f"matcher: one 4 MiB shard's _gpu_match_compact, device busy "
+        f"{busy:.4f} ms (median of 15, cold L2)")
+    results[0][2]["matcher_busy_ms"] = busy
+    return results
 
 
 def _decoder():
@@ -506,7 +568,7 @@ def path_phase(corpus, dev):
     try:
         outs = {}
         for q in (0, 1):
-            before = MR.LAUNCHES.get("match_rounds", 0)
+            before = MR.LAUNCHES.get("match_rounds_shifted", 0)
             waited[0] = 0.0
             t0 = time.perf_counter()
             outs[q] = compress_fast(corpus, lgwin=22, quality=q, device=dev)
@@ -514,10 +576,12 @@ def path_phase(corpus, dev):
             _report(f"compress_fast q{q}", corpus, outs[q], dt,
                     dict(wall_s=dt, device_wait_s=waited[0],
                          device_fraction=waited[0] / dt))
-            n = MR.LAUNCHES.get("match_rounds", 0) - before
-            if n != 3 * full_shards:
-                raise AssertionError(f"compress_fast q{q}: {n} match_rounds"
-                                     f" launches, want {3 * full_shards}")
+            # one fold-form launch per fold: h4 (k = 2) and h8 (k8 = 1)
+            n = MR.LAUNCHES.get("match_rounds_shifted", 0) - before
+            if n != 2 * full_shards:
+                raise AssertionError(f"compress_fast q{q}: {n} launches of "
+                                     "match_rounds_shifted, want "
+                                     f"{2 * full_shards}")
     finally:
         FAST._gpu_match_compact = match
     launches["fast"] = dict(MR.LAUNCHES)
@@ -623,26 +687,37 @@ def _bound(nbytes: float, nops: float):
 
 
 def step_probe_phase(dev):
-    """TPU probe #9's kernel function at the probe's shape: the probe's
-    own run (one launch per read count, counts set to 0 just before and
-    read just after), then kernel against plain version and timings."""
-    import numpy as np
+    """TPU probe #9's kernel function at the probe's shape: the latency
+    of the instructions on its chain (decode_gpu.latency_probe) and the
+    SM clock; the probe's own run (brotli_tpu_torch/research/
+    decode_step_kernel_probe.py, launch counts set to 0 just before and
+    read just after); then kernel against plain version and timings, with
+    the plan launched and each read count's latency bound."""
     import torch
 
     from brotli_tpu_torch.ops import decode_gpu as D
-    tab = torch.from_numpy(np.arange(PROBE_LANES * 1056, dtype=np.int32)
-                           .reshape(PROBE_LANES, 1056) % 997).to(dev)
-    st = torch.arange(PROBE_LANES, dtype=torch.int32, device=dev)[None, :]
-    launches = {}
-    D.LAUNCHES["step_probe"] = 0
-    for reads in (0, 1, 2):   # the probe's run: P3, P1, P2
-        before = D.LAUNCHES["step_probe"]
-        D.step_probe(tab, st, PROBE_STEPS, reads)
-        launches[reads] = D.LAUNCHES["step_probe"] - before
+    from brotli_tpu_torch.research import decode_step_kernel_probe as P
+    lat = D.latency_probe(dev)
+    khz = D.sm_clock_khz(dev.index or 0)
+    log(f"latency probe: dependent cycles {json.dumps(lat)}; SM clock "
+        f"{khz} kHz (cudaDevAttrClockRate)")
+    tab, st = P.inputs(dev)
+    keys = ["step_probe"] + [f"step_probe_reads{r}" for r in D.PROBE_READS]
+    for key in keys:
+        D.LAUNCHES[key] = 0
+    probe = P.run(dev, reps=5, steps=PROBE_STEPS)
     torch.cuda.synchronize()
+    launches = {key: D.LAUNCHES[key] for key in keys}
+    # per read count a warm call, then twice one call and a chain of 5
+    if any(launches[k] != 1 + 2 * (1 + 5) for k in keys[1:]):
+        raise AssertionError(f"step_probe: launches {launches} in the "
+                             "probe's run")
+    log(f"decode_step_kernel_probe: launches {json.dumps(launches)}")
+    log(json.dumps({"decode_step_kernel_probe": probe}))
     results = {}
-    for reads in (0, 1, 2):
+    for reads in D.PROBE_READS:
         got = D.step_probe(tab, st, PROBE_STEPS, reads)
+        plan = dict(D.LAST_PROBE_PLAN)
         want = D.step_probe_ref(tab, st, PROBE_STEPS, reads)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
@@ -659,15 +734,25 @@ def step_probe_phase(dev):
         bound_ms, by = _bound(
             4 * PROBE_LANES * (PROBE_STEPS * reads + 2),
             PROBE_LANES * PROBE_STEPS * (5 + 2 * reads))
-        results[reads] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=by, launches=launches[reads],
-                              max_abs_err=int((got - want).abs().max()),
-                              **dt)
+        # a lane's steps are a dependent chain: steps x the cycles of one
+        # step's critical path, at the card's SM clock
+        cycles = D.step_latency_cycles(reads, lat)
+        path = " + ".join(k if n == 1 else f"{n} {k}"
+                          for k, n in D.step_latency_path(reads))
+        lat_ms = PROBE_STEPS * cycles / (khz * 1e3) * 1e3
+        results[reads] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            latency_bound_ms=lat_ms, step_cycles=cycles,
+            launches=launches[f"step_probe_reads{reads}"],
+            max_abs_err=int((got - want).abs().max()), grid=plan, **dt)
         log(f"kernel step_probe reads={reads}: equal to step_probe_ref at "
             f"{PROBE_LANES} lanes x {PROBE_STEPS} steps; kernel {ms:.4f} ms"
-            f" (device {dt['device_ms']:.4f}, burst {dt['burst_ms']:.4f})"
-            f" ({ms * 1e3 / PROBE_STEPS:.4f} us per step), plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({by})")
+            f" (device {dt['device_ms']:.4f}, burst {dt['burst_ms']:.4f};"
+            f" {dt['device_ms'] * 1e3 / PROBE_STEPS:.5f} us a step on "
+            f"device time), plain {plain_ms:.3f} ms, bound {bound_ms:.6f} "
+            f"ms ({by}), latency bound {lat_ms:.5f} ms ({cycles:.2f} "
+            f"cycles a step: {path}; device / latency bound "
+            f"{dt['device_ms'] / lat_ms:.3f}); plan {json.dumps(plan)}")
     return results
 
 
@@ -1135,7 +1220,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     timings = kernel_phase(corpus, dev, fold_ptxas)
-    mr_timing = match_rounds_phase(corpus, dev)
+    mr_timings = match_rounds_phase(corpus, dev)
     sp_timings = step_probe_phase(dev)
     ds_lanes64 = decode_kernel_phase(corpus, dev, enc, step_insns)
     log(f"kernel phase wall: {time.perf_counter() - t0:.1f} s")
@@ -1167,12 +1252,15 @@ def main() -> int:
         kernels.append(dict(name=label, route="cuda", source=SRC,
                             replaces=REPLACES, launches=n,
                             library_ms=None, **timings[label]))
-    n = launches["fast"].get("match_rounds", 0)
-    if n == 0:
-        raise AssertionError("match_rounds: no launch on its path")
-    kernels.append(dict(name="match_rounds", route="cuda", source=MR_SRC,
-                        replaces=MR_REPLACES, launches=n, library_ms=None,
-                        **mr_timing))
+    # the fold form on compress_fast, by its offsets; the two-operand
+    # form is on no path (its launches are 0)
+    for name, key, t in mr_timings:
+        n = launches["fast"].get(key, 0)
+        if n == 0 and name != "match_rounds":
+            raise AssertionError(f"{name}: no launch on its path")
+        kernels.append(dict(name=name, route="cuda", source=MR_SRC,
+                            replaces=MR_REPLACES, launches=n,
+                            library_ms=None, **t))
     if ds_launches == 0:
         raise AssertionError("decode_step: no launch on its path")
     kernels.append(dict(name="decode_step", route="cuda", source=DS_SRC,

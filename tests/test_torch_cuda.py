@@ -1,6 +1,7 @@
 """brotli_tpu_torch on the card: the CUDA kernels (fold, also at the
-edges of its design, match_rounds, decode_step, step_probe, the radix
-probes' five primitives) against their plain versions, and the
+edges of its design, match_rounds in both forms, decode_step,
+step_probe on its plan's grid, the radix probes' five primitives)
+against their plain versions, the latency probe, and the
 compress and batch-decode paths on CUDA against the CPU paths.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is
@@ -137,12 +138,52 @@ def test_match_rounds_kernel_matches_ref(rounds, m):
     assert torch.equal(got, want)
 
 
+def _periodic_rounds(rounds: int, m: int, period: int,
+                     seed: int) -> np.ndarray:
+    """int32 [rounds, m]: a random column repeated every `period` rows,
+    8% of the words with a byte flipped and 5% zero, so that the chains
+    at multiples of the period run long and all chains stop in every
+    round."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 1 << 32, size=(rounds, period), dtype=np.uint64)
+    va = np.tile(base, (1, m // period + 1))[:, :m].copy()
+    flip = rng.random((rounds, m)) < 0.08
+    n = int(flip.sum())
+    va[flip] ^= rng.integers(1, 256, n, dtype=np.uint64) \
+        << (8 * rng.integers(0, 4, n, dtype=np.uint64))
+    va[rng.random((rounds, m)) < 0.05] = 0
+    return va.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 100_003])
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_match_rounds_shifted_kernel_matches_ref(k, m):
+    """The fold form at the warp's edges: lanes < j take their left
+    word from the halo the warp's first k lanes load."""
+    dev = _card()
+    va = torch.from_numpy(_periodic_rounds(8, m, min(k, 3), seed=k * m)) \
+        .to(dev)
+    before = MR.LAUNCHES.get("match_rounds_shifted", 0)
+    got = MR.match_rounds_shifted(va, k)
+    assert MR.LAUNCHES["match_rounds_shifted"] == before + 1
+    assert MR.LAST_PLAN["k"] == k and MR.LAST_PLAN["rows"] == m
+    want = MR.match_rounds_shifted_ref(va, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if m > 1000:
+        assert int((want == 32).sum()) > 0 and int((want < 4).sum()) > 0
+
+
 def test_compress_fast_card_matches_cpu():
     dev = _card()
     data = _data(300_000, seed=3).tobytes()
-    before = MR.LAUNCHES.get("match_rounds", 0)
+    before = dict(MR.LAUNCHES)
     got = compress_fast(data, device=dev)
-    assert MR.LAUNCHES["match_rounds"] == before + 3
+    # one shard: one fold-form launch for each of its two folds
+    assert MR.LAUNCHES.get("match_rounds_shifted", 0) \
+        == before.get("match_rounds_shifted", 0) + 2
+    assert MR.LAUNCHES.get("match_rounds", 0) \
+        == before.get("match_rounds", 0)
     assert got == compress_fast(data, device="cpu")
 
 
@@ -304,18 +345,62 @@ def test_decode_step_plan_covers_every_sm():
     assert plan["ctas"] >= sms
 
 
+def _probe_inputs(lanes: int, width: int, seed: int, dev):
+    rng = np.random.default_rng(seed)
+    tab = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31,
+                                        size=(lanes, width), dtype=np.int64)
+                           .astype(np.int32)).to(dev)
+    st = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(1, lanes),
+                                       dtype=np.int64).astype(np.int32))
+    return tab, st.to(dev)
+
+
 @pytest.mark.parametrize("reads", [0, 1, 2])
 def test_step_probe_kernel_matches_ref(reads):
     dev = _card()
-    rng = np.random.default_rng(reads)
-    tab = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31,
-                                        size=(128, 1056), dtype=np.int64)
-                           .astype(np.int32)).to(dev)
-    st = torch.arange(128, dtype=torch.int32, device=dev)[None, :]
+    tab, st = _probe_inputs(128, 1056, reads, dev)
     before = D.LAUNCHES.get("step_probe", 0)
     got = D.step_probe(tab, st, 64, reads)
     assert D.LAUNCHES["step_probe"] == before + 1
     assert torch.equal(got, D.step_probe_ref(tab, st, 64, reads))
+
+
+@pytest.mark.parametrize("lanes", [1, 127, 128, 129, 1000])
+@pytest.mark.parametrize("reads", [0, 1, 2])
+def test_step_probe_kernel_edges(reads, lanes):
+    """Lane counts about a CTA an SM, rows that are not 16-byte aligned
+    (width 1024 + reads), and 0, 1 and 2048 steps, on the plan's grid."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for width in (1024 + reads, 1056, 4096):
+        tab, st = _probe_inputs(lanes, width, lanes * width + reads, dev)
+        for steps in (0, 1, 2048):
+            got = D.step_probe(tab, st, steps, reads)
+            assert D.LAST_PROBE_PLAN == dict(
+                D.step_probe_plan(lanes, width, sms), lanes=lanes,
+                width=width, reads=reads)
+            want = D.step_probe_ref(tab, st, steps, reads)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (width, steps)
+
+
+def test_step_probe_rejects_what_the_plan_cannot_hold():
+    dev = _card()
+    too_wide = D.SMEM_MAX // 4 + 1
+    tab, st = _probe_inputs(2, too_wide, 0, dev)
+    with pytest.raises(ValueError):
+        D.step_probe(tab, st, 8, 1)
+    tab, st = _probe_inputs(2, 1056, 0, dev)
+    with pytest.raises(ValueError):
+        D.step_probe(tab, st, 8, 3)
+
+
+def test_latency_probe_and_clock():
+    dev = _card()
+    lat = D.latency_probe(dev)
+    assert set(lat) == {"IMAD", "LOP3", "IADD3", "LDS"}
+    assert all(1 <= v < 200 for v in lat.values()), lat
+    assert D.sm_clock_khz(dev.index or 0) > 100_000
 
 
 def test_decompress_batch_gpu_card_matches_cpu():
