@@ -42,13 +42,34 @@
 //   hist8         research/radix_probe.py:187 (hist_kernel), the function
 //                 its body means (its `.reshape(1, 128)` does not trace):
 //                 out[8*t + q, l] = #{rows i of 2048-row tile t :
-//                 (x[i, l] & 7) == q}.  A block counts one tile's 32-lane
-//                 group into all 256 byte-digit bins in shared memory
-//                 (256 x 32 x 4 B = 32 KiB, digit-major so the 32 lanes of
-//                 a warp hit 32 banks) and folds the bins by digit % 8 when
-//                 it writes out: the count step of a radix sort at B = 256.
-//                 The sums are exact, so the order of the atomics does not
-//                 matter.
+//                 (x[i, l] & 0xFF) % 8 == q}.  It counts all 256 byte
+//                 digits and folds them by digit % 8 only when it writes
+//                 out: the probe asks what the count step of a radix sort
+//                 at B = 256 costs ("256 equality sweeps per tile"), and a
+//                 kernel that counted x & 7 directly would give the same
+//                 output without answering it.
+//                 Bound: bytes, 4 B an element read once.  Each (tile,
+//                 32-lane group) is split over a cluster of kHistCluster
+//                 = 4 CTAs of 512 rows (320 CTAs on the probes' 40,960
+//                 rows, every SM busy; 2 and 8 were slower, PERF.md).
+//                 A warp reads one row's 32
+//                 lanes (128 B) a load; each thread keeps 8 rows' loads
+//                 in flight, the next 8 issued before the shared atomics
+//                 of the last, and the first issued before the bins are
+//                 zeroed.  The loads are cache-streaming (ld.global.cs:
+//                 evict-first in L1 and L2), so the lines of a tile, read
+//                 once, replace each other in L2 and not what the caller
+//                 keeps there (1.09x by device time after the 128 MiB
+//                 write of devtime.device_ms, on an NVIDIA H100 80GB
+//                 HBM3, 700.00 W; PERF.md).  Bins: 16-bit counters, two digits to a word,
+//                 [digit / 2][lane] (16 KiB, every lane of a warp in its
+//                 own bank whatever the digits).  The fold: warp q sums
+//                 digits q, q + 8, ... into a partial [8][32] in shared
+//                 memory; after a cluster barrier rank r of CL sums the
+//                 cluster's partials of rows q in [8r / CL, 8(r+1) / CL)
+//                 through distributed shared memory and writes them: no
+//                 global atomics, no memset, one launch.  The sums are
+//                 exact, so the order of the atomics does not matter.
 //   run_copy      research/radix_probe.py:229 (copy_kernel): K runs of C
 //                 rows from src to dst at the same offsets.  One block per
 //                 run, 16-byte vector loads and stores.  Runs may overlap;
@@ -69,6 +90,7 @@
 // Every launcher returns the CUDA error code of its launch (0 on
 // success); pointers are device pointers, the stream a cudaStream_t.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -78,8 +100,10 @@ namespace {
 constexpr int kLanes = 128;        // lanes of a row
 constexpr int kTile = 2048;        // rows of a hist8 / cmpex3 tile
 constexpr int kBins = 256;         // byte digits hist8 counts
-constexpr int kGroup = 32;         // lanes a hist8 block counts
-constexpr int kHistThreads = 1024;
+constexpr int kGroup = 32;         // lanes a hist8 CTA counts
+constexpr int kHistWarps = 8;      // a hist8 CTA; warp q folds digit % 8 == q
+constexpr int kHistBatch = 8;      // rows' loads a hist8 thread keeps in flight
+constexpr int kHistCluster = 4;    // CTAs that split a hist8 tile
 constexpr int kCmpexRun = 32;      // output rows of one cmpex3 thread
 constexpr int kCmpexHalo = 7;      // rows before them it reads (1 + 2 + 4)
 constexpr int kThreads = 256;
@@ -243,27 +267,71 @@ gather_lanes_kernel(const int32_t* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(kHistThreads)
+// One CTA of a cluster of CL: rows [rank * 2048 / CL, (rank + 1) * 2048 /
+// CL) of tile blockIdx.x / CL, lanes [32 blockIdx.y, 32 blockIdx.y + 32).
+__global__ void __launch_bounds__(kHistWarps * 32)
 hist8_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out) {
-  __shared__ int32_t bins[kBins * kGroup];   // [digit][lane]
-  const int tile = blockIdx.x;
-  const int lane = threadIdx.x % kGroup;
-  const int col = blockIdx.y * kGroup + lane;
-  for (int i = threadIdx.x; i < kBins * kGroup; i += kHistThreads) bins[i] = 0;
+  constexpr int CL = kHistCluster;
+  constexpr int kRows = kTile / CL / kHistWarps;   // rows of one warp
+  constexpr int kBatch = kRows < kHistBatch ? kRows : kHistBatch;
+  constexpr int kOut = 8 * kGroup / CL;            // outputs a rank writes
+  static_assert(kRows % kBatch == 0 && (8 * kGroup) % CL == 0, "hist8 grid");
+  // bins[j][lane]: digit 2j in the low half, 2j + 1 in the high half
+  __shared__ uint4 bins4[kBins / 2 * kGroup / 4];
+  __shared__ int32_t part[8 * kGroup];             // [digit % 8][lane]
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / CL;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int32_t* src =
+      x + (static_cast<int64_t>(tile) * kTile + rank * (kTile / CL) + warp) *
+              kLanes + blockIdx.y * kGroup + lane;
+  constexpr int64_t kStep = static_cast<int64_t>(kHistWarps) * kLanes;
+  int v[kBatch];
+#pragma unroll
+  for (int b = 0; b < kBatch; ++b) v[b] = __ldcs(src + b * kStep);
+  for (int i = threadIdx.x; i < kBins / 2 * kGroup / 4; i += kHistWarps * 32)
+    bins4[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  const int32_t* src = x + static_cast<int64_t>(tile) * kTile * kLanes + col;
-  for (int r = threadIdx.x / kGroup; r < kTile; r += kHistThreads / kGroup) {
-    int d = src[static_cast<int64_t>(r) * kLanes] & (kBins - 1);
-    atomicAdd(&bins[d * kGroup + lane], 1);
+  unsigned* bins = reinterpret_cast<unsigned*>(bins4);
+#pragma unroll
+  for (int i0 = 0; i0 < kRows; i0 += kBatch) {
+    int nxt[kBatch];
+    if (i0 + kBatch < kRows) {
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        nxt[b] = __ldcs(src + (i0 + kBatch + b) * kStep);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const unsigned d = static_cast<unsigned>(v[b]) & (kBins - 1);
+      atomicAdd(&bins[(d >> 1) * kGroup + lane], 1u << ((d & 1) * 16));
+    }
+    if (i0 + kBatch < kRows) {
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) v[b] = nxt[b];
+    }
   }
   __syncthreads();
-  if (threadIdx.x < 8 * kGroup) {
-    const int q = threadIdx.x / kGroup;   // digit % 8
-    int sum = 0;
-    for (int k = 0; k < kBins / 8; ++k)
-      sum += bins[(8 * k + q) * kGroup + lane];
-    out[(static_cast<int64_t>(tile) * 8 + q) * kLanes + col] = sum;
+  // warp q: digits q + 8m sit in word (q >> 1) + 4m, half q & 1
+  const unsigned shift = (warp & 1) * 16;
+  int sum = 0;
+#pragma unroll
+  for (int m = 0; m < kBins / 8; ++m)
+    sum += (bins[((warp >> 1) + 4 * m) * kGroup + lane] >> shift) & 0xFFFF;
+  part[warp * kGroup + lane] = sum;
+  cluster.sync();
+  if (threadIdx.x < kOut) {
+    const int at = rank * kOut + threadIdx.x;   // q * 32 + lane
+    int total = 0;
+#pragma unroll
+    for (int r = 0; r < CL; ++r) total += cluster.map_shared_rank(part, r)[at];
+    out[(static_cast<int64_t>(tile) * 8 + at / kGroup) * kLanes +
+        blockIdx.y * kGroup + at % kGroup] = total;
   }
+  cluster.sync();   // no CTA leaves while another reads its partial
 }
 
 __global__ void run_copy_kernel(const int4* __restrict__ src,
@@ -396,12 +464,25 @@ extern "C" int gather_lanes_launch(const void* x, const void* idx, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// hist8 on the grid of ops/radix_cuda.py:hist8_plan: (rows / 2048 x
+// kHistCluster, 4) CTAs of 256 threads in clusters of kHistCluster.
 extern "C" int hist8_launch(const void* x, void* out, int rows,
                             void* stream) {
-  const dim3 grid(rows / kTile, kLanes / kGroup);
-  hist8_kernel<<<grid, kHistThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows / kTile * kHistCluster, kLanes / kGroup);
+  cfg.blockDim = dim3(kHistWarps * 32);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kHistCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, hist8_kernel, static_cast<const int32_t*>(x),
+      static_cast<int32_t*>(out));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 extern "C" int run_copy_launch(const void* src, void* dst, const void* offs,

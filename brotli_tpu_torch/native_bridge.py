@@ -356,13 +356,16 @@ def extend_caps(data, dict_len, pos, dist, lens):
 def encode_metablock(data, start, mlen, is_last, ins, wire, dist, adv,
                      cache, window_size, npostfix, ndirect, dist_alpha,
                      quality, context_mode, num_lit_ctx, lit_static_map,
-                     lut0, lut1, ext_lit_split=None):
+                     lut0, lut1, ext_lit_split=None, cap_bits=None):
     """Fused per-metablock resolve + plan + serialize.  Returns (words,
     nbits, new_cache), or None on overflow (the caller stores the span
     uncompressed; the cache is unchanged then).
 
     ext_lit_split: optional (types_per_literal int32[], num_types), a
-    literal block split planned on the device (ops/split.py)."""
+    literal block split planned on the device (ops/split.py).
+    cap_bits: the output buffer's bits; None = 9 * mlen + 2^17, the
+    JAX package's bound.  The store refuses a block when its running
+    size plus 16 bits for each literal of the next insert passes it."""
     lib = get_lib()
     data = np.ascontiguousarray(data, dtype=np.uint8)
     ins = np.ascontiguousarray(ins, np.int64)
@@ -370,7 +373,8 @@ def encode_metablock(data, start, mlen, is_last, ins, wire, dist, adv,
     dist = np.ascontiguousarray(dist, np.int64)
     adv = np.ascontiguousarray(adv, np.int64)
     cache_io = np.asarray(cache, dtype=np.int64).copy()
-    cap_bits = 9 * int(mlen) + (1 << 17)
+    if cap_bits is None:
+        cap_bits = 9 * int(mlen) + (1 << 17)
     words = np.zeros(cap_bits // 64 + 2, np.uint64)
     smap = np.ascontiguousarray(lit_static_map, np.int64)
     lut0 = np.ascontiguousarray(lut0, np.uint8)

@@ -18,8 +18,8 @@ raises; on CPU tensors it runs its plain PyTorch version `*_ref`.
 Indices and offsets are taken to be in range, as the probes make them:
 gather_rows' in [0, R), gather_lanes' in [0, 128), run_copy's in
 [0, rows - run_rows].  LAUNCHES counts kernel launches, gather_rows'
-under "gather_rows_R<R>".  gather_rows_plan and gather_lanes_plan give
-the route and grid a gather launches with.
+under "gather_rows_R<R>".  gather_rows_plan, gather_lanes_plan and
+hist8_plan give the route and grid a kernel launches with.
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ SMEM_MAX_R = 2048   # the widest R gather_rows stages in shared memory
 MAX_ROWS = (1 << 31) // LANES   # the kernels' offsets are 32-bit
 ROUTES = {"smem": 0, "l2": 1}
 LANE_ROWS_PER_CTA = 32   # gather_lanes: 8 warps x 4 rows in flight
+HIST8_CLUSTER = 4   # CTAs that split a hist8 tile (kHistCluster; PERF.md)
+HIST8_GROUP = 32    # lanes a hist8 CTA counts
 
 #: kernel launches by name; reset and read by callers that check a run
 #: went through the kernels
@@ -79,8 +81,11 @@ def _check_rows(name: str, *xs: torch.Tensor, multiple: int = 1) -> str:
 
 def _launch(name: str, dev: torch.device, fn, *args) -> None:
     """fn(*args, stream) on the current stream of `dev`, switching the
-    current device only when it is another one; raises on a CUDA error."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    current device only when it is another one; raises on a CUDA error.
+    The stream is the raw handle: torch.cuda.current_stream() builds a
+    Stream object, 5-7 us a call on the host of an NVIDIA H100 80GB
+    HBM3, 700.00 W (PERF.md)."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     if dev.index == torch.cuda.current_device():
         err = fn(*args, stream)
     else:
@@ -138,6 +143,19 @@ def gather_lanes_plan(rows: int, sms: int) -> dict:
     return dict(route="warp", ctas=min(-(-rows // LANE_ROWS_PER_CTA),
                                        8 * sms),
                 smem_bytes=LANE_ROWS_PER_CTA * LANES * 4)
+
+
+def hist8_plan(rows: int) -> dict:
+    """hist8's grid on `rows` rows: each 2048-row tile and 32-lane group
+    split over a cluster of HIST8_CLUSTER CTAs of 256 threads, 2048 /
+    HIST8_CLUSTER rows each; `smem_bytes` per CTA: 128 x 32 words of two
+    16-bit digit counters and the [8, 32] partial the cluster sums."""
+    if rows % TILE or not 0 <= rows <= MAX_ROWS:
+        raise ValueError(f"hist8: no plan for {rows} rows")
+    ctas = rows // TILE * HIST8_CLUSTER * (LANES // HIST8_GROUP)
+    return dict(cluster=HIST8_CLUSTER, ctas=ctas, threads=256,
+                rows_per_cta=TILE // HIST8_CLUSTER,
+                smem_bytes=4 * 128 * HIST8_GROUP + 4 * 8 * HIST8_GROUP)
 
 
 # ---------------------------------------------------------------------------
@@ -240,14 +258,17 @@ def gather_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def hist8(x: torch.Tensor) -> torch.Tensor:
     """Per 2048-row tile and lane, the count of rows with x & 7 == q in
     output row 8 * tile + q (research/radix_probe.py P3, the function
-    hist_kernel's body means)."""
+    hist_kernel's body means).  On the card it launches hist8_plan's
+    grid."""
     if _check_rows("hist8", x, multiple=TILE) == "cpu":
         return hist8_ref(x)
-    lib = LIB.get()
-    out = torch.empty((8 * x.shape[0] // TILE, LANES), dtype=torch.int32,
-                      device=x.device)
-    _launch("hist8", x.device, lib.hist8_launch, x.data_ptr(),
-            out.data_ptr(), x.shape[0])
+    rows = x.shape[0]
+    if rows > MAX_ROWS:
+        raise ValueError(f"hist8: want at most {MAX_ROWS} rows")
+    out = x.new_empty((8 * rows // TILE, LANES))
+    if rows:
+        _launch("hist8", x.device, LIB.get().hist8_launch, x.data_ptr(),
+                out.data_ptr(), rows)
     return out
 
 

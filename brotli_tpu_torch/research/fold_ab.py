@@ -47,7 +47,7 @@ LBS, LEN_SHIFT = 135, 26
 
 # (label, n_keys, n_pay, k_fwd, k_back, fuse_short, the path that
 # launches it: "gpu" = compress_gpu, "max_device" = compress_gpu
-# max_device, None = no path of chip_smoke.py)
+# max_device, "mesh" = compress_mesh, None = no path of chip_smoke.py)
 CONFIGS = [
     ("fold q2-6 exact", 1, 1, 32, 0, False, "gpu"),
     ("fold q7-8 exact8", 2, 0, 16, 8, False, "gpu"),
@@ -56,6 +56,7 @@ CONFIGS = [
     ("fold exact9_fused", 2, 2, 16, 8, True, None),
     ("fold max_device q2-6", 1, 5, 32, 0, False, "max_device"),
     ("fold max_device q7-9", 1, 5, 16, 0, False, "max_device"),
+    ("fold mesh q2-6", 1, 3, 32, 0, False, "mesh"),
 ]
 
 

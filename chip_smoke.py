@@ -14,9 +14,12 @@ floor), makes a
 port leaves unchanged, zipf-distributed words, structured records with
 noise, slowly varying integers, random bytes), then:
 
-  kernel phase  each fold configuration on 4,718,592 sorted rows of
-                the corpus (the row of one 512 KiB span at lgwin 22),
-                and match_rounds at R = 8 on the first 4 MiB shard: the
+  kernel phase  each fold configuration of compress_gpu on 4,718,592
+                sorted rows of the corpus (the row of one 512 KiB span
+                at lgwin 22) and compress_mesh's three (q2-6: one key,
+                3 payloads, 32/0; q9: the exact9 pair) on 8,388,608
+                (a shard's row: 4 MiB halo + 4 MiB shard), and
+                match_rounds at R = 8 on the first 4 MiB shard: the
                 fold form on the h4 order at k = 2 and on the h8 order
                 at k = 1 (as compress_fast runs them), the two-operand
                 form on the h4 order against its shift by 1, each with
@@ -63,6 +66,15 @@ noise, slowly varying integers, random bytes), then:
                 full shard, once at k = 2 and once at k = 1); every
                 output must decode back (libbrotlidec when present,
                 else the port's native decoder)
+  mesh phase    compress_mesh over 8 shards of 4 MiB (each behind a
+                4 MiB halo) on the card at lgwin 22, q5 and q9: the
+                fold's launch counts set to 0 just before each call and
+                read just after (each fold of the tier once a shard),
+                MB/s, ratio and the host's wait on the device; each call
+                again under a CUDA activity trace for the folds' device
+                ms a shard and the idle share, and q9 once more under
+                cProfile for the host's functions by own time; every
+                output must decode back
   decode path   decompress_batch_gpu on a serving batch (1024 streams
                 of 64 KiB: half compress_fast q1, half native q3), a
                 multi-round batch (8 streams of 8 MiB through
@@ -83,7 +95,8 @@ noise, slowly varying integers, random bytes), then:
                 on all 1024 of the serving batch's lanes, with the
                 arrays, step cap and buffer sizes the path gives it
   cpu check     each path on the card equals the same path with
-                device="cpu" byte for byte on a 1 MiB prefix, and
+                device="cpu" byte for byte on a 1 MiB prefix
+                (compress_mesh at q5 and q9 over 8 shards), and
                 decompress_batch_gpu on the card equals device="cpu" on
                 32 streams of 4 KiB
   radix phase   the radix probes (brotli_tpu_torch/research/
@@ -95,10 +108,12 @@ noise, slowly varying integers, random bytes), then:
                 (gather_rows at R = 8 ... 8192, gather_lanes, hist8,
                 run_copy, cmpex3) against its plain version at the
                 probes' shape, int32 [40960, 128]: kernel, plain and
-                torch.gather ms, device_ms and burst_ms, and the bound;
-                for the gathers also the route and grid they launched
-                with and the host us a call of the wrapper and of
-                torch.gather (1,000 calls, no synchronize)
+                torch.gather ms, device_ms and burst_ms, the bound and
+                the host us a call of the wrapper (1,000 calls, no
+                synchronize); for the gathers and hist8 also the route
+                and grid they launched with (hist8: CTAs, cluster size,
+                shared bytes), for the gathers the host us of
+                torch.gather
   profile       where one q9 call on 8 MiB spends its time: host
                 functions by own time (cProfile), device kernels by
                 device time and the device's idle share (torch.profiler)
@@ -106,10 +121,10 @@ noise, slowly varying integers, random bytes), then:
 Every row of the kernels line carries ms, device_ms, burst_ms and
 device_bound_share (bound_ms / device_ms: a cold L2 keeps it at or
 under 1); the folds' rows also plan, ptxas, pairs, pairs_share,
-longest_lane_share and bound_ms_all_pairs; the gathers' rows also
-library_device_ms, library_burst_ms, host_us, library_host_us and
-grid; decode_step's also grid (its plan), per_step_us, sass_step_floor
-and bound_ms_at_360; match_rounds' also plan and rounds (the fold
+longest_lane_share, bound_ms_all_pairs and rows; the radix rows also
+host_us, the gathers' also library_device_ms, library_burst_ms,
+library_host_us and grid, hist8's also grid; decode_step's also grid
+(its plan), per_step_us, sass_step_floor and bound_ms_at_360; match_rounds' also plan and rounds (the fold
 form's also words, bound_ms_two_operand and, at k = 2, the matcher's
 matcher_busy_ms); step_probe's also grid, latency_bound_ms and
 step_cycles.  The line before the last is
@@ -164,6 +179,18 @@ FALLBACK_STREAMS = 16
 SHARD = 1 << 22             # compress_fast's shard
 CORPUS_MIB = 32
 SEED = 20261016
+MESH_SHARDS = 8             # compress_mesh: 8 shards of 4 MiB
+MESH_ROW = 8 << 20          # a shard row: a 4 MiB halo and 4 MiB shard
+# compress_mesh's folds by quality (fold_cuda.config_name)
+MESH_FOLDS = {5: ["fold_k1p3_f32b0"],
+              9: ["fold_k2p2_f16b8", "fold_k1p1_f16b0"]}
+# the folds at ROW rows, and the mesh's at MESH_ROW (fold_ab.CONFIGS'
+# entries; the q9 pair is compress_gpu's q9 configuration on the mesh's
+# longer row)
+ROW_CONFIGS = [c for c in CONFIGS if c[6] != "mesh"]
+MESH_CONFIGS = [c for c in CONFIGS if c[6] == "mesh"] + [
+    ("fold mesh q9 main", 2, 2, 16, 8, False, "mesh"),
+    ("fold mesh q9 short", 1, 1, 16, 0, False, "mesh")]
 
 def log(*a):
     print(*a, flush=True)
@@ -309,19 +336,20 @@ def sass_step_floor(lib_path: str, kernel: str = "decode_step_kernel"):
     raise AssertionError(f"sass: no path around {kernel}'s loop")
 
 
-def kernel_phase(corpus, dev, fold_ptxas):
-    """Every fold configuration at the path's shape, kernel against the
-    plain version on the same inputs."""
+def kernel_phase(corpus, dev, fold_ptxas, configs, rows):
+    """Each fold configuration of `configs` on the sorted operands of
+    the corpus's first `rows` bytes, kernel against the plain version on
+    the same inputs."""
     import numpy as np
     import torch
 
     from brotli_tpu_torch.ops import fold_cuda as F
-    row = torch.from_numpy(np.frombuffer(corpus[:ROW], np.uint8)
+    row = torch.from_numpy(np.frombuffer(corpus[:rows], np.uint8)
                            .copy()).to(dev)
     results = {}
-    for label, n_keys, n_pay, k_fwd, k_back, fuse, _ in CONFIGS:
+    for label, n_keys, n_pay, k_fwd, k_back, fuse, _ in configs:
         ops = sorted_ops(row, n_keys, n_pay)
-        args = fold_args(n_keys, k_fwd, k_back, fuse, ROW)
+        args = fold_args(n_keys, k_fwd, k_back, fuse, rows)
         packed, score = F.fold_sorted(ops, **args)
         plan = dict(F.LAST_PLAN)
         rp, rs = F.fold_sorted_ref(ops, **args)
@@ -344,7 +372,7 @@ def kernel_phase(corpus, dev, fold_ptxas):
         n_pairs = int(pairs.sum())
         # with one lane a row a warp runs as long as its longest lane:
         # the pairs 32 consecutive rows take then, over all pairs
-        longest = int(pairs[:ROW // 32 * 32].view(-1, 32).max(1).values
+        longest = int(pairs[:rows // 32 * 32].view(-1, 32).max(1).values
                       .sum()) * 32
         ms = median_ms(lambda: F.fold_sorted(ops, **args), 15)
         dt = device_times(lambda: F.fold_sorted(ops, **args), "fold_kernel")
@@ -353,15 +381,15 @@ def kernel_phase(corpus, dev, fold_ptxas):
         # ~20 integer ops for each (row, offset) pair the exits leave.
         # bound_ms_all_pairs: the first port's count, ~5 ops for every
         # pair and ~20 more where v0 matches
-        nbytes = ROW * (4 * len(ops) + 8)
-        idx = torch.arange(ROW, device=dev)
+        nbytes = rows * (4 * len(ops) + 8)
+        idx = torch.arange(rows, device=dev)
         n_same = 0
         for j in list(range(1, k_fwd + 1)) + [-j for j in
                                               range(1, k_back + 1)]:
             ok = (ops[0] == torch.roll(ops[0], j)) & (idx - j >= 0) \
-                & (idx - j < ROW)
+                & (idx - j < rows)
             n_same += int(ok.sum())
-        all_ops = 5 * ROW * (k_fwd + k_back) + 20 * n_same
+        all_ops = 5 * rows * (k_fwd + k_back) + 20 * n_same
         nops = 20 * n_pairs
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / INT_OPS_PER_S * 1e3
@@ -375,18 +403,19 @@ def kernel_phase(corpus, dev, fold_ptxas):
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bound_ms_all_pairs=max(t_bytes,
                                    all_ops / INT_OPS_PER_S * 1e3),
-            pairs=n_pairs, pairs_share=n_pairs / (ROW * (k_fwd + k_back)),
-            longest_lane_share=longest / (ROW * (k_fwd + k_back)),
+            pairs=n_pairs, pairs_share=n_pairs / (rows * (k_fwd + k_back)),
+            longest_lane_share=longest / (rows * (k_fwd + k_back)),
             max_abs_err=err, plan=plan,
             ptxas=dict(kernel=kname, **fold_ptxas[kname]), **dt)
-        log(f"kernel {label}: equal to fold_sorted_ref on {ROW} rows "
+        results[label]["rows"] = rows
+        log(f"kernel {label}: equal to fold_sorted_ref on {rows} rows "
             f"({hits} matches); kernel {ms:.4f} ms (device "
             f"{dt['device_ms']:.4f}, burst {dt['burst_ms']:.4f}), plain "
             f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G int ops for "
             f"{n_pairs} pairs the exits leave, "
-            f"{n_pairs / (ROW * (k_fwd + k_back)):.4f} of all, a warp's "
-            f"longest lane {longest / (ROW * (k_fwd + k_back)):.4f}; all "
+            f"{n_pairs / (rows * (k_fwd + k_back)):.4f} of all, a warp's "
+            f"longest lane {longest / (rows * (k_fwd + k_back)):.4f}; all "
             f"pairs {results[label]['bound_ms_all_pairs']:.4f} ms); plan "
             f"{json.dumps(plan)}; ptxas {json.dumps(results[label]['ptxas'])}")
         del ops, packed, score, rp, rs, ep, es, pairs
@@ -607,8 +636,66 @@ def path_phase(corpus, dev):
     return launches
 
 
+def mesh_phase(corpus, dev):
+    """compress_mesh over MESH_SHARDS shards of the whole corpus at
+    lgwin 22, q5 and q9 (each shard row a 4 MiB halo plus its 4 MiB),
+    all on the card; the fold's launch counts set to 0 just before each
+    call and read just after, and every shard must have launched each
+    fold of its tier.  Each call again under a CUDA activity trace for
+    the folds' device ms a shard and the device's idle share.  Every
+    output must decode back.  Returns the launch counts of both calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from brotli_tpu_torch import compress_mesh, make_mesh
+    from brotli_tpu_torch.ops import fold_cuda as F
+    name, decode = _decoder()
+    mesh = make_mesh(MESH_SHARDS)
+    if {d.type for d in mesh} != {"cuda"}:
+        raise AssertionError(f"mesh: shards not on the card: {mesh}")
+    launches, outs = {}, {}
+    for q, folds in MESH_FOLDS.items():
+        F.LAUNCHES.clear()
+        stats = {}
+        t0 = time.perf_counter()
+        outs[q] = compress_mesh(corpus, mesh=mesh, quality=q, lgwin=22,
+                                stats=stats)
+        dt = time.perf_counter() - t0
+        got = dict(F.LAUNCHES)
+        launches.update(got)
+        if got != {f: MESH_SHARDS for f in folds}:
+            raise AssertionError(f"mesh q{q}: fold launches {got}, want "
+                                 f"{MESH_SHARDS} of each of {folds}")
+        _report(f"mesh q{q} ({MESH_SHARDS} shards)", corpus, outs[q], dt,
+                stats)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            again = compress_mesh(corpus, mesh=mesh, quality=q, lgwin=22)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if again != outs[q]:
+            raise AssertionError(f"mesh q{q}: two calls differ")
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        fold_ms = sum(e.time_range.elapsed_us() for e in evs
+                      if "fold_kernel" in e.name) / 1e3
+        busy_ms = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+        log(f"path mesh q{q} traced: wall {wall:.3f} s, fold kernels "
+            f"{fold_ms:.4f} ms device ({fold_ms / MESH_SHARDS:.4f} ms a "
+            f"shard, {sum(1 for e in evs if 'fold_kernel' in e.name)} "
+            f"launches), device busy {busy_ms:.3f} ms, idle share "
+            f"{1 - busy_ms / 1e3 / wall:.6f}")
+    log(f"path mesh launches: {json.dumps(launches)}")
+    _host_profile(f"mesh q{max(MESH_FOLDS)}", lambda: compress_mesh(
+        corpus, mesh=mesh, quality=max(MESH_FOLDS), lgwin=22))
+    for q, out in outs.items():
+        _round_trip(name, decode, out, corpus, f"mesh q{q}")
+    log(f"path mesh round trips: ok through {name}")
+    return launches
+
+
 def cpu_check(corpus, dev):
-    from brotli_tpu_torch import compress_fast, compress_gpu
+    from brotli_tpu_torch import compress_fast, compress_gpu, compress_mesh
     prefix = corpus[:1 << 20]
     runs = [(f"q{q}", lambda d, q=q: compress_gpu(prefix, quality=q,
                                                    lgwin=22, device=d))
@@ -620,6 +707,10 @@ def cpu_check(corpus, dev):
               lambda d, q=q: compress_gpu(prefix, quality=q, lgwin=22,
                                           max_device=True, device=d))
              for q in (5, 9)]
+    runs += [(f"mesh q{q} ({MESH_SHARDS} shards)",
+              lambda d, q=q: compress_mesh(prefix, n_shards=MESH_SHARDS,
+                                           quality=q, lgwin=22, device=d))
+             for q in MESH_FOLDS]
     for what, run in runs:
         t0 = time.perf_counter()
         a, b = run(dev), run("cpu")
@@ -815,7 +906,7 @@ def radix_phase(dev):
     sites.append(("hist8", "hist8", "research/radix_probe.py:200",
                   lambda: RC.hist8(x), lambda: RC.hist8_ref(x), None,
                   4 * n + 4 * 8 * n // 2048, 2 * n + 32 * 8 * n // 2048,
-                  "hist8_kernel", None))
+                  "hist8_kernel", RC.hist8_plan(rows)))
     dst_k, dst_r = torch.zeros_like(x), torch.zeros_like(x)
     sites.append(("run_copy", "run_copy", "research/radix_probe.py:241",
                   lambda: RC.run_copy(x, dst_k, offs, RP.RUN_ROWS),
@@ -844,20 +935,22 @@ def radix_phase(dev):
         entry = dict(name=name, route="cuda", source=RP_SRC,
                      replaces=where, launches=launches[key],
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=by, library_ms=None, **dt)
+                     bound_ms=bound_ms, bound_by=by, library_ms=None,
+                     host_us=host_us(kern), **dt)
+        if grid is not None:
+            entry["grid"] = grid
         lib_txt = "library none: no single PyTorch call computes it"
         if lib is not None:
             ldt = device_times(lib, "gather")
             entry.update(library_ms=median_ms(lib, 15),
                          library_device_ms=ldt["device_ms"],
                          library_burst_ms=ldt["burst_ms"],
-                         host_us=host_us(kern), library_host_us=host_us(lib),
-                         grid=grid)
+                         library_host_us=host_us(lib))
             lib_txt = (f"torch.gather {entry['library_ms']:.4f} ms (device "
                        f"{ldt['device_ms']:.4f}, burst {ldt['burst_ms']:.4f},"
-                       f" host {entry['library_host_us']:.1f} us a call); "
-                       f"wrapper host {entry['host_us']:.1f} us a call; grid "
-                       f"{json.dumps(grid)}")
+                       f" host {entry['library_host_us']:.1f} us a call)")
+        lib_txt += (f"; wrapper host {entry['host_us']:.1f} us a call"
+                    + (f"; grid {json.dumps(grid)}" if grid else ""))
         kernels.append(entry)
         log(f"kernel {name}: equal to its plain version on [{rows}, 128] "
             f"int32; kernel {ms:.4f} ms (device {dt['device_ms']:.4f}, "
@@ -1123,7 +1216,8 @@ def decode_path_phase(corpus, dev, enc, step_insns):
                 f"{wait / wall:.4f}")
     finally:
         B.batch_decode_device = run
-    _profile_decode(serve, dev)
+    _host_profile("decode serving",
+                  lambda: decompress_batch_gpu(serve, device=dev))
 
     # the kernel against its plain version on the serving batch's lanes,
     # with the arrays, step cap and buffer sizes the path gave it
@@ -1151,19 +1245,18 @@ def decode_path_phase(corpus, dev, enc, step_insns):
                 max_abs_err=0, grid=plan, **dt), launches
 
 
-def _profile_decode(streams, dev, rows=10):
-    """Where one serving-batch call spends its host time: functions by
-    own time (cProfile)."""
+def _host_profile(what, call, rows=10):
+    """Where one call spends its host time: functions by own time
+    (cProfile)."""
     import cProfile
     import pstats
 
-    from brotli_tpu_torch import decompress_batch_gpu
     pr = cProfile.Profile()
     t0 = time.perf_counter()
     pr.enable()
-    decompress_batch_gpu(streams, device=dev)
+    call()
     pr.disable()
-    log(f"profile decode serving: wall {time.perf_counter() - t0:.3f} s "
+    log(f"profile {what}: wall {time.perf_counter() - t0:.3f} s "
         "under cProfile; host functions by own time:")
     st = pstats.Stats(pr)
     for (fname, line, func), (_, ncalls, tt, ct, _) in sorted(
@@ -1219,7 +1312,9 @@ def main() -> int:
     enc = native_encoder()
 
     t0 = time.perf_counter()
-    timings = kernel_phase(corpus, dev, fold_ptxas)
+    timings = kernel_phase(corpus, dev, fold_ptxas, ROW_CONFIGS, ROW)
+    timings.update(kernel_phase(corpus, dev, fold_ptxas, MESH_CONFIGS,
+                                MESH_ROW))
     mr_timings = match_rounds_phase(corpus, dev)
     sp_timings = step_probe_phase(dev)
     ds_lanes64 = decode_kernel_phase(corpus, dev, enc, step_insns)
@@ -1227,6 +1322,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches = path_phase(corpus, dev)
     log(f"path phase wall: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["mesh"] = mesh_phase(corpus, dev)
+    log(f"mesh phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ds_serving, ds_launches = decode_path_phase(corpus, dev, enc,
                                                 step_insns)
@@ -1242,7 +1340,8 @@ def main() -> int:
 
     from brotli_tpu_torch.ops.fold_cuda import config_name
     kernels = []
-    for label, n_keys, n_pay, k_fwd, k_back, fuse, path in CONFIGS:
+    for label, n_keys, n_pay, k_fwd, k_back, fuse, path in \
+            ROW_CONFIGS + MESH_CONFIGS:
         if path is None:
             continue
         n = launches[path].get(

@@ -1,8 +1,9 @@
 """brotli_tpu_torch on the card: the CUDA kernels (fold, also at the
 edges of its design, match_rounds in both forms, decode_step,
-step_probe on its plan's grid, the radix probes' five primitives)
-against their plain versions, the latency probe, and the
-compress and batch-decode paths on CUDA against the CPU paths.
+step_probe on its plan's grid, the radix probes' five primitives,
+hist8 also on its edge inputs) against their plain versions, the
+latency probe, and the compress, multi-shard and batch-decode paths,
+the shard pipelines and the entry points on CUDA against the CPU.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is
 false.  On a machine with a card:
@@ -17,12 +18,16 @@ import numpy as np
 import pytest
 import torch
 
-from brotli_tpu_torch import compress_fast, compress_gpu, decompress_batch_gpu
+from brotli_tpu_torch import (compress_fast, compress_gpu, compress_mesh,
+                              decompress_batch_gpu, make_mesh)
+from brotli_tpu_torch import entry as E
 from brotli_tpu_torch.decode import batch_gpu as B
 from brotli_tpu_torch.ops import decode_gpu as D
 from brotli_tpu_torch.ops import fold_cuda as F
 from brotli_tpu_torch.ops import match_rounds_cuda as MR
 from brotli_tpu_torch.ops import radix_cuda as RC
+from brotli_tpu_torch.parallel import mesh as M
+from brotli_tpu_torch.research import hist8_ab as H8
 
 from .fold_edges import CASES as FOLD_CASES
 from .fold_edges import CONFIGS as FOLD_CONFIGS
@@ -52,7 +57,8 @@ def _data(n: int, seed: int) -> np.ndarray:
                                     (1, 1, 16, 0, False),
                                     (2, 2, 16, 8, True),
                                     (1, 5, 32, 0, False),
-                                    (1, 5, 16, 0, False)])
+                                    (1, 5, 16, 0, False),
+                                    (1, 3, 32, 0, False)])
 def test_fold_kernel_matches_ref(config, min_pos):
     dev = _card()
     n_keys, n_pay, k_fwd, k_back, fuse = config
@@ -116,6 +122,19 @@ def test_compress_gpu_card_matches_cpu(quality):
                                device="cpu")
 
 
+@pytest.mark.parametrize("quality", [5, 9])
+def test_compress_mesh_card_matches_cpu(quality):
+    """Four shards on the card (make_mesh's default placement) against
+    the same shards on the host; every shard launches its folds."""
+    _card()
+    data = _data(300_000, seed=40 + quality).tobytes()
+    before = sum(F.LAUNCHES.values())
+    got = compress_mesh(data, n_shards=4, quality=quality, lgwin=16)
+    assert sum(F.LAUNCHES.values()) - before == (4 if quality <= 6 else 8)
+    assert got == compress_mesh(data, n_shards=4, quality=quality, lgwin=16,
+                                device="cpu")
+
+
 @pytest.mark.parametrize("rounds,m", [(1, 1), (4, 1000), (8, 100_003)])
 def test_match_rounds_kernel_matches_ref(rounds, m):
     dev = _card()
@@ -155,8 +174,57 @@ def _periodic_rounds(rounds: int, m: int, period: int,
     return va.astype(np.uint32).view(np.int32)
 
 
+def _fold_form_launches() -> dict:
+    return {k: MR.LAUNCHES.get(f"match_rounds_shifted_k{k}", 0)
+            for k in range(1, MR.MAX_K + 1)}
+
+
+def test_shard_pipelines_card_match_cpu():
+    """sharded_pipeline and match_pipeline over two shards on the card
+    against the same on the host; each shard runs best_matches_block
+    (k = 4, k8 = 2): one fold-form launch at k = 4 and one at k = 2."""
+    _card()
+    blocks = _data(2 * 8192, seed=61).reshape(2, 8192)
+    window = (1 << 16) - 16
+    for make in (M.sharded_pipeline, M.match_pipeline):
+        before = _fold_form_launches()
+        got = make(make_mesh(2), window)(blocks)
+        delta = {k: n - before[k] for k, n in _fold_form_launches().items()
+                 if n != before[k]}
+        assert delta == {4: 2, 2: 2}
+        want = make(make_mesh(2, device="cpu"), window)(blocks)
+        assert got[0].device.type == "cuda"
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        assert int(got[-1]) > 0
+
+
+def test_entry_step_card_matches_cpu():
+    """entry()'s step on the card (its default) launches the fold once
+    and gives the arrays of entry(device="cpu")'s step."""
+    _card()
+    step, (data,) = E.entry()
+    assert data.device.type == "cuda"
+    before = sum(F.LAUNCHES.values())
+    got = step(data)
+    assert sum(F.LAUNCHES.values()) == before + 1
+    cstep, (cdata,) = E.entry(device="cpu")
+    for g, w in zip(got, cstep(cdata)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_dryrun_multichip_card_matches_cpu():
+    """dryrun_multichip(8) on the card (eight shards on one card, each
+    with its two q9 folds) round-trips and equals the host run."""
+    _card()
+    before = sum(F.LAUNCHES.values())
+    out = E.dryrun_multichip(8)
+    assert sum(F.LAUNCHES.values()) - before == 16
+    assert out == E.dryrun_multichip(8, device="cpu")
+
+
 @pytest.mark.parametrize("m", [1, 31, 32, 33, 100_003])
-@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
 def test_match_rounds_shifted_kernel_matches_ref(k, m):
     """The fold form at the warp's edges: lanes < j take their left
     word from the halo the warp's first k lanes load."""
@@ -483,6 +551,18 @@ def test_hist8_and_cmpex3_kernels_match_ref(narrow):
     assert int(got.sum()) == x.numel()
     got = _launched_once("cmpex3", RC.cmpex3, x)
     assert torch.equal(got, RC.cmpex3_ref(x))
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 20])
+def test_hist8_kernel_edges(tiles):
+    """One digit filling each tile, negative words, every digit once a
+    lane and seeded words, on the plan's grid."""
+    dev = _card()
+    for kind, v in H8.edge_inputs(tiles).items():
+        x = torch.from_numpy(v.astype(np.int32)).to(dev)
+        got = _launched_once("hist8", RC.hist8, x)
+        assert torch.equal(got, RC.hist8_ref(x)), kind
+        assert int(got.sum()) == x.numel()
 
 
 def test_run_copy_kernel_matches_ref():

@@ -27,6 +27,9 @@ from brotli_tpu_torch.decode import batch_gpu as B
 from brotli_tpu_torch.decode.decoder import BrotliDecodeError
 from brotli_tpu_torch.encode import fast as TF
 from brotli_tpu_torch.ops import decode_gpu as D
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = ("lits", "nlit", "cmds", "ncmd", "end_bit", "status", "cache")

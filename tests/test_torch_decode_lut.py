@@ -25,6 +25,9 @@ from brotli_tpu.ops import decode_tpu as JD
 from brotli_tpu_torch.core import constants as C
 from brotli_tpu_torch.ops import decode_gpu as D
 from brotli_tpu_torch.research.root_bits import long_share
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WINDOWS = 1 << 15

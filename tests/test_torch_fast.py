@@ -33,6 +33,9 @@ from brotli_tpu_torch import compress_fast
 from brotli_tpu_torch.encode import fast as TF
 from brotli_tpu_torch.ops import match_rounds_cuda as MR
 from brotli_tpu_torch.ops import matching as TM
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _data(n: int, seed: int) -> np.ndarray:

@@ -17,6 +17,9 @@ import torch
 from brotli_tpu.ops import fold_pallas as FP
 from brotli_tpu.ops.matching import u32_values_at as jax_u32_at
 from brotli_tpu_torch.ops import fold_cuda as FC
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 20000           # not a multiple of the Pallas tile (16384)
 WINDOW = 1 << 14

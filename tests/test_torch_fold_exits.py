@@ -18,6 +18,9 @@ import torch
 from brotli_tpu_torch.ops import fold_cuda as F
 
 from .fold_edges import CASES, CONFIGS, edge_case, phrases
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _sorted(data: np.ndarray, n_keys: int, n_pay: int):

@@ -17,6 +17,9 @@ from brotli_tpu.ops.pallas_match import match_lengths_blocked as jblocked
 from brotli_tpu.ops.pallas_match import match_rounds_pallas
 from brotli_tpu_torch.ops import match_rounds_cuda as MR
 from brotli_tpu_torch.ops import matching as TM
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _planted(rounds: int, m: int, seed: int):

@@ -25,7 +25,10 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
         "brotli_tpu_torch.decode.decoder, "
         "brotli_tpu_torch.ops.radix_cuda, "
         "brotli_tpu_torch.research.radix_probe, "
-        "brotli_tpu_torch.research.radix_probe2\n"
+        "brotli_tpu_torch.research.radix_probe2, "
+        "brotli_tpu_torch.research.hist8_ab, "
+        "brotli_tpu_torch.parallel.mesh, brotli_tpu_torch.entry, "
+        "brotli_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'brotli_tpu' or "
         "m.startswith('brotli_tpu.'))\n"
@@ -80,6 +83,23 @@ def test_compress_gpu_without_device_raises_when_cuda_is_absent(
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_and_entry_without_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    from brotli_tpu_torch import compress_mesh, make_mesh
+    from brotli_tpu_torch.entry import dryrun_multichip, entry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = b"hello brotli " * 10000
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compress_mesh(data, n_shards=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun_multichip(8)
+    assert make_mesh(2, device="cpu") == [torch.device("cpu")] * 2
 
 
 def test_decompress_batch_gpu_without_device_raises_when_cuda_is_absent(

@@ -19,6 +19,9 @@ from brotli_tpu.ops.parse import committed_parse as jparse
 from brotli_tpu_torch import compress_gpu
 from brotli_tpu_torch.ops import fold_cuda as FC
 from brotli_tpu_torch.ops.parse import committed_parse
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("sub_block", [64, 4096])

@@ -14,6 +14,9 @@ from . import oracle
 from brotli_tpu import decompress
 from brotli_tpu.encode.tpu_path import compress_tpu
 from brotli_tpu_torch import compress_gpu
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _corpus(seed: int = 1) -> bytes:

@@ -29,9 +29,13 @@ from jax.experimental.pallas import tpu as pltpu
 from brotli_tpu_torch.ops import fold_cuda as F
 from brotli_tpu_torch.ops import radix_cuda as RC
 from brotli_tpu_torch.research import gather_ab as GA
+from brotli_tpu_torch.research import hist8_ab as H8
 from brotli_tpu_torch.research import radix_probe as RP
 from brotli_tpu_torch.research import radix_probe2 as RP2
 from brotli_tpu_torch.research.corpus import SEED, make_corpus
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K, C = 64, 16   # copy_kernel's closure: runs, rows per run
@@ -192,6 +196,73 @@ def test_hist8_matches_fixed_hist_kernel():
     xt = torch.from_numpy(x)
     np.testing.assert_array_equal(RC.hist8_ref(xt).numpy(), want)
     np.testing.assert_array_equal(_no_launch(RC.hist8, xt).numpy(), want)
+
+
+HIST8_EDGES = ["one_digit", "negative", "every_digit"]
+
+
+@pytest.mark.parametrize("kind", HIST8_EDGES)
+def test_hist8_ref_edges(kind):
+    """hist8_ref on research/hist8_ab.py's edge inputs against the counts
+    by numpy: one digit filling each tile (a count of 2048 in one row),
+    negative words, every digit once a lane."""
+    x = H8.edge_inputs(2)[kind].astype(np.int32)
+    tiles = (x & 0xFF).reshape(2, 2048, 128) % 8
+    counts = np.stack([(tiles == q).sum(1) for q in range(8)], 1)
+    got = RC.hist8_ref(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, counts.reshape(16, 128))
+    if kind == "one_digit":
+        assert (got == 2048).sum() == 2 * 128
+    if kind == "every_digit":
+        assert (got[:, 0] == 32).sum() == 2 * 7
+
+
+def test_hist8_ref_edges_match_hist_kernel():
+    """The three edge inputs, a tile each, through the TPU body."""
+    x = np.concatenate([H8.edge_inputs(1)[k] for k in HIST8_EDGES]
+                       ).astype(np.int32)
+    want = np.asarray(_blocked(hist_kernel, 2048, x.shape[0], 8)(
+        jnp.asarray(x)))
+    np.testing.assert_array_equal(RC.hist8_ref(torch.from_numpy(x)).numpy(),
+                                  want)
+
+
+def test_hist8_plan_covers_every_sm():
+    """The probes' 20 tiles give 320 CTAs in clusters of 4, more than
+    the H100's 132 SMs; 16-bit counters cover a CTA's 512 rows."""
+    p = RC.hist8_plan(40960)
+    assert p == dict(cluster=4, ctas=320, threads=256, rows_per_cta=512,
+                     smem_bytes=17408)
+    assert p["rows_per_cta"] < 1 << 16
+    assert RC.hist8_plan(2048)["ctas"] == 16
+    for rows in (1000, 2049, RC.MAX_ROWS + RC.TILE):
+        with pytest.raises(ValueError):
+            RC.hist8_plan(rows)
+    with open(RC.LIB.src) as f:
+        assert f"constexpr int kHistCluster = {RC.HIST8_CLUSTER};" in f.read()
+
+
+def test_hist8_ab_variant_sources_rewrite_the_constants(tmp_path,
+                                                       monkeypatch):
+    """Each build of the design sweep is the source with its own cluster
+    size, batch and load, and nothing else changed."""
+    monkeypatch.setattr(H8, "BUILD_DIR", str(tmp_path))
+    with open(RC.LIB.src) as f:
+        src = f.read()
+    for batch, load in H8.LOADS:
+        for cluster in H8.CLUSTERS:
+            with open(H8._variant_source(batch, load, cluster)) as f:
+                got = f.read()
+            assert f"constexpr int kHistBatch = {batch};" in got
+            assert f"constexpr int kHistCluster = {cluster};" in got
+            assert got.count(f"{load}(src") == src.count(
+                f"{H8.SOURCE[1]}(src") == 2
+            back = got.replace(f"kHistBatch = {batch};",
+                               f"kHistBatch = {H8.SOURCE[0]};").replace(
+                f"kHistCluster = {cluster};",
+                f"kHistCluster = {RC.HIST8_CLUSTER};").replace(
+                f"{load}(src", f"{H8.SOURCE[1]}(src")
+            assert back == src
 
 
 def test_run_copy_matches_copy_kernel_on_copied_rows():

@@ -16,6 +16,9 @@ import torch
 
 from brotli_tpu.ops import split as JS
 from brotli_tpu_torch.ops import split as TS
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _path_pairs():

@@ -19,6 +19,9 @@ import torch
 
 from brotli_tpu_torch.ops import decode_gpu as D
 from brotli_tpu_torch.research import decode_step_kernel_probe as P
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = {"P3_vector_only": {"us_per_step"},

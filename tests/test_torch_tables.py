@@ -35,6 +35,9 @@ from brotli_tpu_torch.encode import static_dict as TSD
 from brotli_tpu_torch.encode.params import DistanceParams as TDist
 from brotli_tpu_torch.encode.params import from_reference
 from brotli_tpu_torch.ops import matching as TMat
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
