@@ -1,9 +1,29 @@
-"""brotli_tpu_torch: brotli_tpu's device paths in PyTorch + CUDA.
+"""brotli_tpu_torch: brotli_tpu in PyTorch + CUDA.
 
-The port of brotli_tpu's device tier to an NVIDIA H100.  It imports
-torch and numpy, never jax and nothing of brotli_tpu: the host-side
-tables and helpers it needs are its own trimmed copies, and the C++
-runtime in native/ is built by its own bridge (native_bridge.py).
+The port of brotli_tpu to an NVIDIA H100.  It imports torch and numpy,
+never jax and nothing of brotli_tpu: the host-side tables and helpers
+it needs are its own copies, and the C++ runtime in native/ is built by
+its own bridge (native_bridge.py).
+
+Host entry points (the native runtime, no tensor, no torch import):
+
+  compress(data, quality=11, lgwin=22, lgblock=0, mode=0, catable=False,
+           appendable=False, bare=False, byte_align=False,
+           magic_number=False, large_window=False, custom_dictionary=b"",
+           ..., metablock_callback=None) -> bytes
+      q0-q9, byte-identical to brotli_tpu.compress; quality >= 10,
+      q9_5 and q10_deep raise NotImplementedError (the optimal parser
+      is not ported yet)
+  compress_multi(data, num_parts, quality=9, lgwin=22, mode=0,
+                 backend="thread", favor_cpu_efficiency=False) -> bytes
+      parts compressed side by side and merged with BroCatli (backends
+      thread, serial, process, workpool), byte-identical to
+      brotli_tpu.compress_multi
+  compress_batch(payloads, threads=8, **params) -> list of bytes
+      independent payloads through compress(), side by side
+  EncoderParams, BroCatli, BroCatliResult, concatenate(streams)
+
+Device entry points (imported at first use; they import torch):
 
   compress_gpu(data, quality=9, lgwin=22, mode=0, span=None,
                stats=None, max_device=False, device=None) -> bytes
@@ -19,19 +39,46 @@ runtime in native/ is built by its own bridge (native_bridge.py).
   make_mesh(n_devices=None, device=None) -> list of torch.device
       shard i on CUDA card i % device_count, or every shard on `device`
 
-All of them run on CUDA unless device="cpu" is passed; without CUDA and
-without device="cpu" they raise.  The match fold (csrc/fold.cu), the
-match-length round chain (csrc/match_rounds.cu) and the batch decoder's
-per-lane symbol loop (csrc/decode_step.cu) are CUDA C++ kernels built
-with nvcc at first use; on CPU tensors their plain PyTorch versions run
-instead.
+The device entry points run on CUDA unless device="cpu" is passed;
+without CUDA and without device="cpu" they raise.  The match fold
+(csrc/fold.cu), the match-length round chain (csrc/match_rounds.cu) and
+the batch decoder's per-lane symbol loop (csrc/decode_step.cu) are CUDA
+C++ kernels built with nvcc at first use; on CPU tensors their plain
+PyTorch versions run instead.
 """
 
-from .decode.batch_gpu import decompress_batch_gpu
-from .device import resolve_device
-from .encode.fast import compress_fast
-from .encode.gpu_path import compress_gpu
-from .parallel.mesh import compress_mesh, make_mesh
+import importlib
 
-__all__ = ["compress_fast", "compress_gpu", "compress_mesh",
+from .concat.brocatli import BroCatli, BroCatliResult, concatenate
+from .encode.batch import compress_batch
+from .encode.encoder import compress
+from .encode.params import EncoderParams
+from .parallel.multi import compress_multi
+
+# the device entry points and the modules that hold them
+_DEVICE_ENTRIES = {
+    "compress_fast": ".encode.fast",
+    "compress_gpu": ".encode.gpu_path",
+    "compress_mesh": ".parallel.mesh",
+    "decompress_batch_gpu": ".decode.batch_gpu",
+    "make_mesh": ".parallel.mesh",
+    "resolve_device": ".device",
+}
+
+
+def __getattr__(name):
+    """A device entry point, imported at its first use: the host
+    encoder's process workers import this package without torch."""
+    if name not in _DEVICE_ENTRIES:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    value = getattr(importlib.import_module(_DEVICE_ENTRIES[name],
+                                            __name__), name)
+    globals()[name] = value
+    return value
+
+
+__all__ = ["BroCatli", "BroCatliResult", "EncoderParams", "compress",
+           "compress_batch", "compress_fast", "compress_gpu",
+           "compress_mesh", "compress_multi", "concatenate",
            "decompress_batch_gpu", "make_mesh", "resolve_device"]

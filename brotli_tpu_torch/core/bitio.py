@@ -3,8 +3,9 @@
 A trimmed copy of brotli_tpu/core/bitio.py.  BitReader: what the batch
 decoder's header walk reads (bits, peeks, byte alignment, whole bytes,
 the bit position).  BitWriter: headers, whole-byte stores, the append
-of natively packed metablocks, and the checkpoint that rolls a
-metablock back for the uncompressed fallback.
+of natively packed metablocks (at any bit position, or assembled at
+the writer's own bit phase), and the checkpoint that rolls a metablock
+back for the uncompressed fallback.
 """
 
 from __future__ import annotations
@@ -84,6 +85,9 @@ class BitWriter:
         self.buf = bytearray()
         self.bitpos = 0  # bits already used in the last byte (0..7)
 
+    def __len__(self):
+        return len(self.buf)
+
     def bit_length(self) -> int:
         return len(self.buf) * 8 - ((8 - self.bitpos) & 7)
 
@@ -117,6 +121,9 @@ class BitWriter:
     def align_to_byte(self):
         self.bitpos = 0
 
+    def is_byte_aligned(self) -> bool:
+        return self.bitpos == 0
+
     def append_packed(self, words: np.ndarray, total_bits: int):
         """Append a pre-packed little-endian bit buffer: the low
         `total_bits` bits of uint64 `words` (LSB-first, word 0 first)."""
@@ -145,6 +152,32 @@ class BitWriter:
         self.buf[-1] = last | ((int(raw[0]) << p) & 0xFF)
         self.buf += tail.tobytes()
         self.bitpos = (p + total_bits) & 7
+        if self.bitpos:
+            self.buf[-1] &= (1 << self.bitpos) - 1
+
+    def append_packed_phased(self, words: np.ndarray, total_bits: int,
+                             phase: int):
+        """Append a pre-packed buffer assembled at this writer's bit
+        phase: its first `phase` bits are zero placeholders for the bits
+        already in the writer's partial last byte (self.bitpos must
+        equal phase), so the bytes join with one OR on the boundary
+        byte."""
+        if self.bitpos != phase:
+            raise ValueError(f"append_packed_phased: writer at bit "
+                             f"{self.bitpos}, buffer at phase {phase}")
+        if total_bits <= phase:
+            return
+        nbytes = (total_bits + 7) >> 3
+        used = words[:(total_bits + 63) >> 6]
+        raw = np.frombuffer(
+            np.ascontiguousarray(used, dtype="<u8").tobytes()[:nbytes],
+            dtype=np.uint8)
+        if phase == 0:
+            self.buf += raw.tobytes()
+        else:
+            self.buf[-1] |= int(raw[0])
+            self.buf += raw[1:].tobytes()
+        self.bitpos = total_bits & 7
         if self.bitpos:
             self.buf[-1] &= (1 << self.bitpos) - 1
 

@@ -1,11 +1,12 @@
 """Metablock serialization on the host.
 
 A trimmed copy of brotli_tpu/encode/bitstream.py: the window header,
-MLEN, the empty last metablock, the uncompressed metablock (the store
-for spans whose compressed form would be larger), and the trivial
-metablock of the q0/q1 path -- one prefix code per category, its
-symbol stream built as (bits, nbits) item arrays in stream order and
-packed by the native runtime.
+MLEN, the empty last and padding metablocks, the magic-number header,
+the uncompressed metablock (the store for spans whose compressed form
+would be larger), the trivial metablock -- one prefix code per
+category, its symbol stream built as (bits, nbits) item arrays in
+stream order and packed by the native runtime -- and the optimized
+metablock of the native planner (store_meta_block_auto).
 """
 
 from __future__ import annotations
@@ -38,6 +39,50 @@ def write_mlen(writer: BitWriter, mlen: int):
 def write_empty_last_meta_block(writer: BitWriter):
     writer.write(1, 1)  # ISLAST
     writer.write(1, 1)  # ISLASTEMPTY
+
+
+def write_padding_meta_block(writer: BitWriter):
+    """Empty (non-last) metadata block used for byte alignment
+    (reference BrotliWritePaddingMetaBlock)."""
+    writer.write(0, 1)   # ISLAST
+    writer.write(3, 2)   # MNIBBLES == 0 -> metadata
+    writer.write(0, 1)   # reserved
+    writer.write(0, 2)   # MSKIPBYTES = 0
+    writer.align_to_byte()
+
+
+FORMAT_VERSION = 1
+
+
+def encode_base_128(value: int) -> bytes:
+    """LEB128-style size-hint encoding (reference encode_base_128)."""
+    out = bytearray()
+    while True:
+        b = value & 0x7F
+        value >>= 7
+        out.append(b | (0x80 if value else 0))
+        if not value:
+            return bytes(out)
+
+
+def write_magic_number(writer: BitWriter, size_hint: int = 0,
+                       catable: bool = False, appendable: bool = False):
+    """Dropbox magic-number header: a metadata block after the window
+    header carrying magic + version + base-128 size hint."""
+    hint = encode_base_128(size_hint)
+    writer.write(0, 1)    # ISLAST
+    writer.write(3, 2)    # MNIBBLES == 0 -> metadata
+    writer.write(0, 1)    # reserved
+    writer.write(1, 2)    # MSKIPBYTES = 1
+    writer.write(3 + len(hint), 8)  # MSKIPLEN - 1
+    writer.align_to_byte()
+    if catable:
+        magic = bytes([0xE1, 0x97, 0x81])
+    elif appendable:
+        magic = bytes([0xE1, 0x97, 0x82])
+    else:
+        magic = bytes([0xE1, 0x97, 0x80])
+    writer.write_bytes(magic + bytes([FORMAT_VERSION]) + hint)
 
 
 def store_uncompressed_meta_block(writer: BitWriter, data: bytes):
@@ -166,3 +211,83 @@ def emit_command_stream(writer: BitWriter, cmds: CommandArrays,
         nbits[d_pos + 1] = cmds.dist_extra_bits[d_idx]
 
     writer.append_packed(*nb.pack_bits(bits, nbits))
+
+
+def store_meta_block_auto(writer: BitWriter, full, start: int, mlen: int,
+                          cmds: CommandArrays, dist_params, quality: int,
+                          size_hint: int, mode: int, is_last: bool,
+                          enable_splits: bool = True,
+                          disable_literal_context_modeling: bool = False
+                          ) -> bool:
+    """Plan + serialize one optimized metablock through the native
+    planner (store_metablock_native); returns False, having written
+    nothing, where the planner refuses the block.
+
+    The JAX package (brotli_tpu/encode/bitstream.py:404) falls back to
+    its pure-Python planner (build_meta_block / store_meta_block), of
+    which the native planner is the byte-identical copy, where the
+    native store refuses a block for its buffer of 9 * mlen + 2^17
+    bits.  That refusal is conservative (16 bits for each literal of
+    the next insert), so a block of long inserts can be refused and
+    still come out at 8 bits a byte or less, which every caller keeps.
+    Here the native store then runs once more on a buffer for the worst
+    case, which gives the pure-Python planner's bytes; the Python
+    planner itself is not ported.  Where that store refuses too, the
+    caller stores the block uncompressed."""
+    from .metablock import choose_context_mode, choose_literal_context_map
+    region = full[start:start + mlen]
+    ctx_mode = choose_context_mode(region, quality, mode)
+    if disable_literal_context_modeling:
+        # one literal tree per block type: zero context LUTs collapse
+        # every context to 0
+        ctx_mode = 0
+        nlc, smap = 1, np.zeros(64, dtype=np.int64)
+        lut0 = lut1 = np.zeros(256, dtype=np.uint8)
+    elif ctx_mode == C.CONTEXT_UTF8:
+        nlc, smap = choose_literal_context_map(full, start, mlen, quality,
+                                               size_hint)
+        lut0, lut1 = C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode]
+    else:
+        nlc, smap = 1, np.zeros(64, dtype=np.int64)
+        lut0, lut1 = C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode]
+    args = (full, start, mlen, is_last, cmds, dist_params.npostfix,
+            dist_params.ndirect, dist_params.alphabet_size, quality,
+            ctx_mode, nlc, smap, lut0, lut1, enable_splits)
+    res = nb.store_metablock(*args)
+    if res is None:
+        res = nb.store_metablock(*args, cap_bits=nb.worst_case_bits(mlen))
+    if res is None:
+        return False
+    writer.append_packed(*res)
+    return True
+
+
+def store_meta_block_or_raw(writer: BitWriter, full, start: int, mlen: int,
+                            cmds: CommandArrays, dist_params, quality: int,
+                            size_hint: int, mode: int, is_last: bool,
+                            disable_literal_context_modeling: bool = False
+                            ) -> bool:
+    """One metablock of resolved commands: store_meta_block_auto at
+    quality >= 4, the trivial store below, kept at <= 8 * mlen + 40
+    bits; else rolled back and stored uncompressed (reference
+    encode.rs:2141-2163), the empty last metablock after it if is_last.
+    Returns whether the block was kept compressed: only then does the
+    decoder's distance cache take the commands' distances."""
+    state = writer.save_state()
+    before = writer.bit_length()
+    if quality >= 4:
+        kept = store_meta_block_auto(
+            writer, full, start, mlen, cmds, dist_params, quality,
+            size_hint, mode, is_last,
+            disable_literal_context_modeling=disable_literal_context_modeling)
+    else:
+        store_meta_block_trivial(writer, full, start, mlen, is_last, cmds,
+                                 dist_params)
+        kept = True
+    if kept and writer.bit_length() - before <= 8 * mlen + 40:
+        return True
+    writer.restore_state(state)
+    store_uncompressed_meta_block(writer, full[start:start + mlen].tobytes())
+    if is_last:
+        write_empty_last_meta_block(writer)
+    return False

@@ -41,7 +41,7 @@ def shannon_entropy(counts: np.ndarray) -> float:
     return float(total * np.log2(total) - np.sum(nz * np.log2(nz)))
 
 
-def is_mostly_utf8(data: np.ndarray) -> bool:
+def is_mostly_utf8(data: np.ndarray, min_fraction: float = 0.75) -> bool:
     """Fraction of bytes covered by valid UTF-8 sequences (reference
     BrotliIsMostlyUTF8).  Inputs over 64KB are sampled with contiguous
     4KB blocks every 64KB."""
@@ -64,7 +64,7 @@ def is_mostly_utf8(data: np.ndarray) -> bool:
     ok3 = np.zeros(n, dtype=bool)
     ok3[:-2] = lead3[:-2] & cont[1:-1] & cont[2:]
     size_utf8 = int(ascii_mask.sum()) + 2 * int(ok2.sum()) + 3 * int(ok3.sum())
-    return size_utf8 > 0.75 * n
+    return size_utf8 > min_fraction * n
 
 
 def choose_context_mode(data: np.ndarray, quality: int, mode: int) -> int:

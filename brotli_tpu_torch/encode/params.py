@@ -1,8 +1,11 @@
-"""Encoder parameters for the device compress path.
+"""Encoder parameters.
 
-A trimmed copy of brotli_tpu/encode/params.py: the fields that
-`sanitize()` and the q2-q9 path read, SanitizeParams' dependency
-rules, ComputeLgBlock and the distance alphabet.
+The port's copy of brotli_tpu/encode/params.py: every field of the
+reference's EncoderParams (the Dropbox stream flags, the tuning knobs
+and the IR fields), SanitizeParams' dependency rules, ComputeLgBlock,
+the distance alphabet and the worst-case output bound.  from_reference
+converts the JAX package's parameters for the device compress path,
+which takes only the settings it supports.
 """
 
 from __future__ import annotations
@@ -38,15 +41,39 @@ class DistanceParams:
 @dataclass
 class EncoderParams:
     quality: int = 11
+    q9_5: bool = False            # the "9.5" pseudo-quality family
+    q10_deep: bool = False        # q10 with the full 2-iteration refinement
     lgwin: int = 22
     lgblock: int = 0              # 0 = auto (ComputeLgBlock)
     mode: int = MODE_GENERIC
     size_hint: int = 0
     large_window: bool = False
+
+    # stream-shaping flags
     catable: bool = False         # stream can be concatenated after another
     appendable: bool = False      # another stream may be appended
     bare: bool = False            # omit window header / final marker
     byte_align: bool = False      # pad final output to a byte boundary
+    magic_number: bool = False    # magic-number metadata header
+
+    # tuning
+    literal_byte_score: int = 540
+    avoid_distance_prefix_search: bool = False
+    favor_cpu_efficiency: bool = False
+    num_threads: int = 1
+    # literals use one tree per block type (no context map)
+    disable_literal_context_modeling: bool = False
+    # the output sits at this byte offset of a larger stream: shifts
+    # position-based distance legality
+    stream_offset: int = 0
+
+    # IR side channel
+    log_meta_block: bool = False
+    stride_detection_quality: int = 0
+    prior_bitmask_detection: int = 0
+    literal_adaptation: tuple = ()
+    use_utf8_context_mode: bool | None = None  # None = auto-detect
+
     dist: DistanceParams = field(default_factory=DistanceParams)
 
     def sanitize(self, input_size: int | None = None) -> "EncoderParams":
@@ -76,6 +103,11 @@ class EncoderParams:
     def window_size(self) -> int:
         return (1 << self.lgwin) - 16
 
+    @property
+    def effective_quality(self) -> int:
+        """Quality used for algorithm selection."""
+        return self.quality
+
 
 def compute_lg_block(p: EncoderParams) -> int:
     """Metablock input span bits: an explicit lgblock clamped to
@@ -94,30 +126,40 @@ def compute_lg_block(p: EncoderParams) -> int:
     return max(MIN_INPUT_BLOCK_BITS, min(MAX_INPUT_BLOCK_BITS, lgblock))
 
 
+def max_compressed_size(input_size: int) -> int:
+    """Worst-case output bound (reference BrotliEncoderMaxCompressedSize):
+    the input, the uncompressed metablocks' headers and 16 bytes for the
+    magic number and stream header."""
+    num_blocks = (input_size >> 24) + 1
+    overhead = 2 + 4 * num_blocks + 3 + 1
+    return input_size + overhead + 16
+
+
+# settings outside the q2-q9 device path, at their defaults
+_HOST_ONLY_DEFAULTS = dict(
+    q9_5=False, q10_deep=False, magic_number=False,
+    literal_byte_score=540, avoid_distance_prefix_search=False,
+    favor_cpu_efficiency=False, num_threads=1,
+    disable_literal_context_modeling=False, stream_offset=0,
+    log_meta_block=False, stride_detection_quality=0,
+    prior_bitmask_detection=0, literal_adaptation=(),
+    use_utf8_context_mode=None)
+
+
 def from_reference(ref_fields: dict) -> EncoderParams:
     """The port's EncoderParams from brotli_tpu's EncoderParams given as
-    `dataclasses.asdict(...)`.  Fields the port does not carry must
-    not be set: they select behaviour outside the q2-q9 device path,
-    so a value other than the field's default there raises."""
+    `dataclasses.asdict(...)`, for the device compress path.  A setting
+    that selects behaviour outside that path (a value other than the
+    field's default in _HOST_ONLY_DEFAULTS) raises, and so does an
+    unknown field."""
     known = {f.name for f in fields(EncoderParams)}
-    kw = {k: v for k, v in ref_fields.items() if k in known and k != "dist"}
-    dist = DistanceParams(**ref_fields.get("dist", {}))
-    unknown = {k: v for k, v in ref_fields.items() if k not in known}
-    # defaults of the reference's fields that the port leaves out
-    # (brotli_tpu/encode/params.py)
-    dropped_defaults = dict(
-        q9_5=False, q10_deep=False, magic_number=False,
-        literal_byte_score=540, avoid_distance_prefix_search=False,
-        favor_cpu_efficiency=False, num_threads=1,
-        disable_literal_context_modeling=False, stream_offset=0,
-        log_meta_block=False, stride_detection_quality=0,
-        prior_bitmask_detection=0, literal_adaptation=(),
-        use_utf8_context_mode=None)
-    for k, v in unknown.items():
-        if k not in dropped_defaults:
+    for k, v in ref_fields.items():
+        if k not in known:
             raise ValueError(f"unknown encoder parameter {k!r}")
-        if v != dropped_defaults[k]:
+        if k in _HOST_ONLY_DEFAULTS and v != _HOST_ONLY_DEFAULTS[k]:
             raise ValueError(
                 f"encoder parameter {k}={v!r} is not supported by the "
                 "device compress path")
+    kw = {k: v for k, v in ref_fields.items() if k != "dist"}
+    dist = DistanceParams(**ref_fields.get("dist", {}))
     return EncoderParams(**kw, dist=dist)

@@ -12,7 +12,17 @@ invert_perm32 / invert_merge32 (the host inversion of the device's
 sorted-space fold outputs), resolve_distance_codes and pack_bits (the
 q0/q1 trivial metablock store), decode (the host decoder), and the
 batch decoder's lane-header walk (parse_lane_header) and LZ execution
-of device-decoded commands (lz_execute).
+of device-decoded commands (lz_execute).  For the host encoder
+(encode/encoder.py): store_metablock (the optimized metablock
+planner), the whole-stream q0/q1 and q2/q3 pipelines
+(compress_fragment_pipeline, compress_session_pipeline), the
+per-metablock fragment parse (fragment_parse_seg), the match finder
+(find_best_matches), ParseSession (the incremental search + parse),
+and the C API's work pool (work_pool_compress) and
+max_compressed_size.
+
+Every binding returns arrays of its own (no buffer is pooled across
+calls), so results may be kept and handed across threads.
 """
 
 from __future__ import annotations
@@ -157,6 +167,51 @@ def _bind(lib) -> None:
     lib.decoder_set_dictionary.restype = None
     lib.decoder_set_dictionary.argtypes = [U8P, I64P, I64P, U8P, I64P,
                                            U8P, I64P, I64P, U8P, U8P]
+    # the static-dictionary index of the match finders (null when the
+    # dictionary is off): table, hash bits, slots, word bytes, word
+    # lengths, word ids, size bits, omitted-transform ids
+    dict_idx = [I64P, I64, I64, U8P, I64P, I64P, I64P, I64P]
+    lib.store_metablock_native.restype = I64
+    lib.store_metablock_native.argtypes = [
+        U8P, I64, I64, I64, I64, I64P, I64P, I64P, I64P, I64P, I64P, I64P,
+        I64, I64, I64, I64, I64, I64, I64P, U8P, U8P, I64,
+        ctypes.c_void_p, I64, U64P, I64, I64]
+    lib.compress_fragment_pipeline_native.restype = I64
+    lib.compress_fragment_pipeline_native.argtypes = [
+        U8P, I64, I64, I64, I64, I64, I64, I64, I64P, U64P, I64]
+    lib.fragment_parse_seg_native.restype = I64
+    lib.fragment_parse_seg_native.argtypes = [
+        U8P, I64, I64, I64, I64, I64, I64, I64P, I64P, I64P, I64P, I64]
+    lib.find_matches_native.restype = None
+    lib.find_matches_native.argtypes = [
+        U8P, I64, I64, I64, I64, I64, I64, I64, I64, I64, I64,
+        *dict_idx, I64P, I64P, I64P, U8P, I64P, I64P, I64P, I64, I64P]
+    lib.compress_session_pipeline_native.restype = I64
+    lib.compress_session_pipeline_native.argtypes = [
+        U8P, I64, I64, I64, I64, I64, I64, I64, I64, I64, I64, I64,
+        *dict_idx, I64, I64, I64P, U64P, I64]
+    lib.parse_session_begin.restype = ctypes.c_void_p
+    lib.parse_session_begin.argtypes = [
+        U8P, I64, I64, I64, I64, I64, I64, I64, I64, I64, I64,
+        *dict_idx, I64, I64P]
+    lib.parse_session_next.restype = I64
+    lib.parse_session_next.argtypes = [ctypes.c_void_p, I64, I64P, I64P,
+                                       I64P, I64P, I64]
+    lib.parse_session_prime.restype = None
+    lib.parse_session_prime.argtypes = [ctypes.c_void_p, I64]
+    lib.parse_session_end.restype = None
+    lib.parse_session_end.argtypes = [ctypes.c_void_p]
+    size_t = ctypes.c_size_t
+    lib.BrotliEncoderMaxCompressedSize.restype = size_t
+    lib.BrotliEncoderMaxCompressedSize.argtypes = [size_t]
+    lib.BrotliEncoderCreateWorkPool.restype = ctypes.c_void_p
+    lib.BrotliEncoderCreateWorkPool.argtypes = [size_t] + [
+        ctypes.c_void_p] * 3
+    lib.BrotliEncoderCompressWorkPool.restype = ctypes.c_int
+    lib.BrotliEncoderCompressWorkPool.argtypes = [
+        ctypes.c_void_p, size_t, ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_uint32), size_t, ctypes.c_char_p,
+        ctypes.POINTER(size_t), ctypes.c_char_p, size_t]
 
 
 def _install_decoder_dictionary(lib) -> None:
@@ -353,13 +408,22 @@ def extend_caps(data, dict_len, pos, dist, lens):
     return out
 
 
+def worst_case_bits(mlen: int) -> int:
+    """A buffer under which the metablock stores refuse no block of
+    mlen bytes: 16 bits a byte (their refusal test charges 16 bits for
+    each literal of the next insert) and 2^17 bits of headers."""
+    return 16 * int(mlen) + (1 << 17)
+
+
 def encode_metablock(data, start, mlen, is_last, ins, wire, dist, adv,
                      cache, window_size, npostfix, ndirect, dist_alpha,
                      quality, context_mode, num_lit_ctx, lit_static_map,
-                     lut0, lut1, ext_lit_split=None, cap_bits=None):
+                     lut0, lut1, ext_lit_split=None, cap_bits=None,
+                     enable_splits=True):
     """Fused per-metablock resolve + plan + serialize.  Returns (words,
     nbits, new_cache), or None on overflow (the caller stores the span
-    uncompressed; the cache is unchanged then).
+    uncompressed; the cache is unchanged then).  enable_splits=False
+    plans no block splits (the host encoder below quality 4).
 
     ext_lit_split: optional (types_per_literal int32[], num_types), a
     literal block split planned on the device (ops/split.py).
@@ -389,7 +453,7 @@ def encode_metablock(data, start, mlen, is_last, ins, wire, dist, adv,
         _ptr(ins), _ptr(wire), _ptr(dist), _ptr(adv),
         _ptr(cache_io), window_size, npostfix, ndirect, dist_alpha,
         quality, context_mode, num_lit_ctx,
-        _ptr(smap), _ptr(lut0, U8P), _ptr(lut1, U8P), 1,
+        _ptr(smap), _ptr(lut0, U8P), _ptr(lut1, U8P), int(enable_splits),
         None if ext_types is None else ext_types.ctypes.data, ext_n,
         _ptr(words, U64P), cap_bits, 0)
     if r < 0:
@@ -470,3 +534,250 @@ def invert_merge32(pos_a, val_a, sc_a, pos_b, val_b, sc_b):
     lib.invert_merge32_native(*[_ptr(a, I32P) for a in args], n,
                               _ptr(out_val, I32P), _ptr(out_sc, I32P))
     return out_val
+
+
+def store_metablock(data, start, mlen, is_last, cmds, npostfix, ndirect,
+                    dist_alpha, quality, context_mode, num_lit_ctx,
+                    lit_static_map, lut0, lut1, enable_splits=True,
+                    cap_bits=None):
+    """Native metablock plan + serialize of resolved commands
+    (CommandArrays).  Returns (words uint64[], nbits), or None where the
+    store refuses the block for its buffer: cap_bits, None = 9 * mlen +
+    2^17 (the JAX package's buffer).  The store refuses a block when its
+    running size plus 16 bits for each literal of the next insert passes
+    the buffer."""
+    lib = get_lib()
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    arrs = [np.ascontiguousarray(a, np.int64) for a in (
+        cmds.insert_len, cmds.copy_len, cmds.dist_code, cmds.dist_extra,
+        cmds.dist_extra_bits, cmds.cmd_sym, cmds.copy_advance)]
+    n = len(arrs[0])
+    if any(len(a) != n for a in arrs):
+        raise ValueError("store_metablock: command arrays differ in length")
+    if cap_bits is None:
+        cap_bits = 9 * int(mlen) + (1 << 17)
+    words = np.zeros(cap_bits // 64 + 2, np.uint64)
+    smap = np.ascontiguousarray(lit_static_map, np.int64)
+    lut0 = np.ascontiguousarray(lut0, np.uint8)
+    lut1 = np.ascontiguousarray(lut1, np.uint8)
+    r = lib.store_metablock_native(
+        _ptr(data, U8P), start, mlen, int(is_last), n,
+        *[_ptr(a) for a in arrs], npostfix, ndirect, dist_alpha, quality,
+        context_mode, num_lit_ctx, _ptr(smap), _ptr(lut0, U8P),
+        _ptr(lut1, U8P), int(enable_splits), None, 0,
+        _ptr(words, U64P), cap_bits, 0)
+    if r < 0:
+        return None
+    return words, int(r)
+
+
+def compress_fragment_pipeline(data, window_size, span, quality,
+                               suppress_last, initial_cache, bit_phase=0,
+                               table_bits=17):
+    """Whole-stream q0/q1 encode: the fragment parse on a worker thread,
+    the trivial store and the bit assembly on the caller's, one native
+    call.  `bit_phase` is the writer's bit within its last byte, so
+    ISUNCOMPRESSED alignment lands on true stream bytes.  Returns
+    (words, nbits, cache) with nbits counted from bit 0 of `words` (the
+    first bit_phase bits are zero: append with append_packed_phased),
+    or None where the output passes its buffer."""
+    lib = get_lib()
+    data = np.ascontiguousarray(data, np.uint8)
+    n = len(data)
+    table_bits = min(table_bits, max(9, n.bit_length()))
+    cap_bits = 9 * n + (1 << 18)
+    words = np.zeros(cap_bits // 64 + 2, np.uint64)
+    cache_io = np.asarray(initial_cache, dtype=np.int64).copy()
+    r = lib.compress_fragment_pipeline_native(
+        _ptr(data, U8P), n, window_size, span, table_bits, quality,
+        int(suppress_last), bit_phase & 7, _ptr(cache_io),
+        _ptr(words, U64P), cap_bits)
+    if r < 0:
+        return None
+    return words, int(r), cache_io.tolist()
+
+
+def fragment_parse_seg(data, window_size, pos0, bound, reset,
+                       table_bits=17):
+    """One metablock of the fragment parse, with a direct-mapped table
+    that persists across calls on one thread: every call for one stream
+    must come from the same thread, reset=True on the first.  Returns
+    (ins, cps, dst, adv), or None where the commands pass their
+    buffer."""
+    lib = get_lib()
+    data = np.ascontiguousarray(data, np.uint8)
+    n = len(data)
+    table_bits = min(table_bits, max(9, n.bit_length()))
+    cap = (bound - pos0) // 4 + 16
+    outs = [np.empty(cap, np.int64) for _ in range(4)]
+    m = lib.fragment_parse_seg_native(
+        _ptr(data, U8P), n, pos0, window_size, table_bits, bound,
+        1 if reset else 0, *[_ptr(a) for a in outs], cap)
+    if m < 0:
+        return None
+    return tuple(a[:m] for a in outs)
+
+
+def _dict_index_args(use_dictionary):
+    """The match finders' static-dictionary arguments and the arrays
+    under their pointers (the caller keeps those while native code may
+    read them); nulls when the dictionary is off."""
+    if not use_dictionary:
+        null = I64P()
+        return (null, 0, 0, U8P(), null, null, null, null), ()
+    from .encode.static_dict import (DICT_HASH_BITS, dict_index,
+                                     omit_last_transform_ids)
+    word_bytes, word_len, word_idx, table, size_bits = dict_index()
+    refs = (np.ascontiguousarray(table, dtype=np.int64),
+            np.ascontiguousarray(word_bytes, dtype=np.uint8),
+            np.ascontiguousarray(word_len, dtype=np.int64),
+            np.ascontiguousarray(word_idx, dtype=np.int64),
+            np.ascontiguousarray(size_bits, dtype=np.int64),
+            np.ascontiguousarray(omit_last_transform_ids(), dtype=np.int64))
+    args = (_ptr(refs[0]), DICT_HASH_BITS, refs[0].shape[1],
+            _ptr(refs[1], U8P), _ptr(refs[2]), _ptr(refs[3]),
+            _ptr(refs[4]), _ptr(refs[5]))
+    return args, refs
+
+
+def find_best_matches(data, window_size, k=8, bucket_bits=17, k8=4,
+                      bucket_bits8=18, hash_len=4, literal_byte_score=540,
+                      dict_len=0, use_dictionary=True, match_cap=320):
+    """Best (len, dist, score, is_dict, wire_len) per position of
+    data[dict_len:]: two hashed candidate tables (4- or 5-byte and
+    8-byte hashes, k and k8 slots a bucket) and, with use_dictionary,
+    the static dictionary."""
+    lib = get_lib()
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    n = len(data)
+    best_len = np.zeros(n, dtype=np.int64)
+    best_dist = np.zeros(n, dtype=np.int64)
+    best_score = np.zeros(n, dtype=np.int64)
+    best_isdict = np.zeros(n, dtype=np.uint8)
+    best_wire = np.zeros(n, dtype=np.int64)
+    dict_args, dict_refs = _dict_index_args(use_dictionary)
+    lib.find_matches_native(
+        _ptr(data, U8P), n, dict_len, window_size, k, bucket_bits, k8,
+        bucket_bits8, hash_len, literal_byte_score // 4, match_cap,
+        *dict_args, _ptr(best_len), _ptr(best_dist), _ptr(best_score),
+        _ptr(best_isdict, U8P), _ptr(best_wire), I64P(), I64P(), 0, I64P())
+    del dict_refs
+    sl = slice(dict_len, None)
+    return (best_len[sl], best_dist[sl], best_score[sl],
+            best_isdict[sl].astype(bool), best_wire[sl])
+
+
+def compress_session_pipeline(data, window_size, span, quality,
+                              suppress_last, initial_cache, bit_phase=0,
+                              use_dictionary=True, k=1, bucket_bits=16,
+                              k8=0, bucket_bits8=15, hash_len=4, n_cache=1,
+                              literal_byte_score=540):
+    """Whole-stream q2/q3 encode: the basic-tier parse session on a
+    worker thread, the trivial store and the bit assembly on the
+    caller's, one native call.  Returns (words, nbits, cache) as
+    compress_fragment_pipeline does, or None where the output passes
+    its buffer."""
+    lib = get_lib()
+    data = np.ascontiguousarray(data, np.uint8)
+    n = len(data)
+    cap_bits = 9 * n + (1 << 18)
+    words = np.zeros(cap_bits // 64 + 2, np.uint64)
+    cache_io = np.asarray(initial_cache, dtype=np.int64).copy()
+    dict_args, dict_refs = _dict_index_args(use_dictionary)
+    r = lib.compress_session_pipeline_native(
+        _ptr(data, U8P), n, window_size, span, quality, k, bucket_bits,
+        k8, bucket_bits8, hash_len, n_cache, literal_byte_score // 4,
+        *dict_args, int(suppress_last), bit_phase & 7, _ptr(cache_io),
+        _ptr(words, U64P), cap_bits)
+    del dict_refs
+    if r < 0:
+        return None
+    return words, int(r), cache_io.tolist()
+
+
+class ParseSession:
+    """The native search + parse, delivered one metablock at a time:
+    its hash tables, distance cache and walk position persist across
+    next() calls, so the segments equal one whole-input parse.  next()
+    and prime() must be called serially in boundary order (from any
+    one thread at a time; the calls release the GIL).  The input and
+    dictionary arrays under the native pointers are held until close(),
+    which ends the native session once."""
+
+    def __init__(self, data, window_size, dict_len=0, pos0=0,
+                 initial_cache=(4, 11, 15, 16), k=8, bucket_bits=17,
+                 k8=4, bucket_bits8=18, hash_len=4, n_cache=4,
+                 literal_byte_score=540, use_dictionary=True):
+        self._handle = None
+        self._lib = get_lib()
+        self._data = np.ascontiguousarray(data, dtype=np.uint8)
+        dict_args, self._dict_refs = _dict_index_args(use_dictionary)
+        self._cache = np.asarray(initial_cache, dtype=np.int64).copy()
+        self._handle = self._lib.parse_session_begin(
+            _ptr(self._data, U8P), len(self._data), dict_len, window_size,
+            k, bucket_bits, k8, bucket_bits8, hash_len, n_cache,
+            literal_byte_score // 4, *dict_args, pos0, _ptr(self._cache))
+        if not self._handle:
+            raise RuntimeError("parse_session_begin: no free session")
+
+    def next(self, boundary_rel: int, max_cmds: int):
+        """Parse up to boundary_rel (relative to the dictionary's end);
+        returns one segment (insert[], wire[], dist[], advance[])."""
+        if self._handle is None:
+            raise RuntimeError("ParseSession: closed")
+        outs = [np.empty(max_cmds, dtype=np.int64) for _ in range(4)]
+        cnt = self._lib.parse_session_next(
+            self._handle, boundary_rel, *[_ptr(a) for a in outs], max_cmds)
+        return tuple(a[:cnt] for a in outs)
+
+    def prime(self, boundary_rel: int):
+        """Advance the session to boundary_rel by hash-table inserts
+        alone (no search, no commands): the dual-session parse skips
+        the half-metablocks the other session parses."""
+        if self._handle is None:
+            raise RuntimeError("ParseSession: closed")
+        self._lib.parse_session_prime(self._handle, boundary_rel)
+
+    def close(self):
+        if self._handle is not None:
+            self._lib.parse_session_end(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        self.close()
+
+
+def max_compressed_size(input_size: int) -> int:
+    """The C API's BrotliEncoderMaxCompressedSize."""
+    return int(get_lib().BrotliEncoderMaxCompressedSize(input_size))
+
+
+_work_pool = None
+_work_pool_lock = threading.Lock()
+WORK_POOL_THREADS = 15
+
+
+def work_pool_compress(data: bytes, num_parts: int, quality: int,
+                       lgwin: int, mode: int) -> bytes:
+    """CompressMulti through the C API's persistent work pool
+    (BrotliEncoderCompressWorkPool: pthread shards, byte-aligned catable
+    parts, concatenated).  The pool of WORK_POOL_THREADS threads is made
+    at the first call and lives with the process."""
+    global _work_pool
+    lib = get_lib()
+    with _work_pool_lock:
+        if _work_pool is None:
+            _work_pool = lib.BrotliEncoderCreateWorkPool(
+                WORK_POOL_THREADS, None, None, None)
+    # parameter ids of the C API: MODE = 0, QUALITY = 1, LGWIN = 2
+    keys = (ctypes.c_uint32 * 3)(0, 1, 2)
+    vals = (ctypes.c_uint32 * 3)(mode, quality, lgwin)
+    cap = max_compressed_size(len(data)) + 64
+    enc = ctypes.create_string_buffer(cap)
+    esz = ctypes.c_size_t(cap)
+    ok = lib.BrotliEncoderCompressWorkPool(
+        _work_pool, 3, keys, vals, len(data), data, ctypes.byref(esz), enc,
+        num_parts)
+    if not ok:
+        raise RuntimeError("BrotliEncoderCompressWorkPool failed")
+    return enc.raw[:esz.value]

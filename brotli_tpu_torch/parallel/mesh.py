@@ -37,6 +37,8 @@ from ..core import constants as C
 from ..core.bitio import BitWriter
 from ..device import resolve_device
 from ..encode import bitstream as bstr
+from ..encode.command import resolve_commands
+from ..encode.encoder import POISONED_DISTANCE, compress
 from ..encode.match import greedy_parse
 from ..encode.metablock import choose_context_mode, choose_literal_context_map
 from ..encode.params import EncoderParams
@@ -49,9 +51,6 @@ from .multi import _merge
 
 SUB_BLOCK = 4096
 LEN_SHIFT = 26
-# the distance cache a catable shard starts from: no distance it holds
-# can be used (brotli_tpu/encode/encoder.py:32)
-POISONED_DISTANCE = 0x7FFFFFF0
 
 
 def make_mesh(n_devices: int | None = None, device=None) -> list:
@@ -229,19 +228,16 @@ def compress_mesh(data, mesh: list | None = None, n_shards: int = None,
     mesh: from make_mesh; None = make_mesh(n_shards, device).
     stats: pass a dict to receive wall_s, device_wait_s (the host
     blocked on the devices' results) and device_fraction = device_wait /
-    wall.  Inputs shorter than n_shards * 4096 bytes take the JAX
-    package's host encoder, which the port does not have: they raise
-    NotImplementedError."""
+    wall.  Inputs shorter than n_shards * 4096 bytes go to the host
+    encoder, compress(data, quality=quality, lgwin=lgwin), as in the JAX
+    package (lgblock is not passed); stats is then left as it was."""
     t_start = time.perf_counter()
     raw = np.frombuffer(bytes(data), dtype=np.uint8)
     if mesh is None:
         mesh = make_mesh(n_shards, device)
     n_dev = len(mesh)
     if len(raw) < n_dev * SUB_BLOCK:
-        raise NotImplementedError(
-            f"compress_mesh: {len(raw)} bytes over {n_dev} shards is under "
-            f"{SUB_BLOCK} bytes a shard, which goes to the host encoder "
-            "(brotli_tpu/encode/encoder.py:compress), not ported yet")
+        return compress(bytes(data), quality=quality, lgwin=lgwin)
     params = EncoderParams(quality=quality, lgwin=lgwin,
                            lgblock=lgblock).sanitize(None)
 
@@ -363,12 +359,12 @@ def _serialize_shard(w, region, row, halo, dlen, start, real, bl, bd,
     """One shard's parse as lgblock-sized metablocks through the native
     store (a metablock is capped at 2^24 bytes by the format).  The
     distance cache rolls across metablocks; a metablock that would
-    expand is stored uncompressed.  Where the native store refuses a
-    block for its buffer, the JAX package takes its pure-Python store:
-    at quality >= 4 the native store on a buffer for the worst case
-    gives the same bytes; below 4 (the trivial store, not ported) the
-    block is stored uncompressed where the native store measures it
-    above 8 * mlen + 40 bits, else it raises."""
+    expand is stored uncompressed.  Where the fused native store refuses
+    a block for its buffer, the commands are resolved here and stored as
+    the JAX package stores them (brotli_tpu/parallel/mesh.py:377-400):
+    store_meta_block_auto at quality >= 4, the trivial store below,
+    kept at <= 8 * mlen + 40 bits, else stored uncompressed with the
+    cache unchanged."""
     span = 1 << params.lgblock
     bounds = list(range(start + span, real, span)) + [real]
     segs = greedy_parse(region, bl, bd, bsc, bounds, dict_len=dlen,
@@ -389,33 +385,24 @@ def _serialize_shard(w, region, row, halo, dlen, start, real, bl, bd,
                 region, dlen + mb_start, mlen, params.quality, real)
         else:
             nlc, smap = 1, np.zeros(64, dtype=np.int64)
-        args = (region, dlen + mb_start, mlen, False, ins, cps, dst, adv,
-                cache, params.window_size, 0, 0, params.dist.alphabet_size,
-                max(params.quality, 4), ctx_mode, nlc, smap,
-                C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode])
-        res = nb.encode_metablock(*args)
-        if res is None:
-            # The native store refused the block for its worst case (16
-            # bits a literal of a long insert).  The JAX package then
-            # stores it through its pure-Python store and keeps that
-            # only at <= 8 * mlen + 40 bits, else stores it uncompressed
-            # with the cache unchanged.  At quality >= 4 that store is
-            # store_meta_block_auto, whose bytes the native store gives
-            # on a buffer for the worst case (tests/test_torch_mesh.py,
-            # low-entropy random bytes); below 4 it is the trivial
-            # store, which is not ported: a block it would keep raises.
-            res = nb.encode_metablock(*args,
-                                      cap_bits=16 * mlen + (1 << 17))
-            if res is None or (params.quality < 4
-                               and res[1] <= 8 * mlen + 40):
-                raise NotImplementedError(
-                    "compress_mesh: a metablock the native store refuses "
-                    "below quality 4 needs the JAX package's pure-Python "
-                    "trivial store, not ported")
+        res = nb.encode_metablock(
+            region, dlen + mb_start, mlen, False, ins, cps, dst, adv,
+            cache, params.window_size, 0, 0, params.dist.alphabet_size,
+            max(params.quality, 4), ctx_mode, nlc, smap,
+            C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode])
         if res is not None and res[1] <= 8 * mlen + 40:
             w.append_packed(res[0], res[1])
             cache[:] = res[2]
-        else:
+        elif res is not None:
             bstr.store_uncompressed_meta_block(
                 w, row[halo + mb_start:halo + mb_end].tobytes())
+        else:
+            cmds, new_cache = resolve_commands(
+                ins, cps, dst, params.dist, advance=adv,
+                initial_cache=cache, pos_offset=dlen + mb_start,
+                window_size=params.window_size)
+            if bstr.store_meta_block_or_raw(
+                    w, region, dlen + mb_start, mlen, cmds, params.dist,
+                    params.quality, mlen, 0, False):
+                cache[:] = new_cache
         mb_start = mb_end

@@ -1,0 +1,154 @@
+"""The IR side channel of the host encoder.
+
+The port's copy of the encoder half of brotli_tpu/utils/ir.py: the IR
+vocabulary (PredictionMode, BlockSwitch{Literal,Command,Distance},
+Copy, Dict, Literal; reference interface.rs Command enum) and
+ir_from_commands, which turns one metablock's resolved commands into
+that IR for compress()'s metablock_callback (reference LogMetaBlock).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..core.dictionary import get_dictionary
+
+
+@dataclass
+class PredictionMode:
+    """Reference interface.rs PredictionModeContextMap (:109-250): the
+    context maps plus embedded adaptation-speed and mixing metadata
+    (set by -speed= / -findspeed / -findprior; IR-only, not wire)."""
+    mode: int = 0
+    literal_context_map: list = field(default_factory=list)
+    distance_context_map: list = field(default_factory=list)
+    cm_speed: tuple = (16, 8192)        # (inc, max) context-map model
+    stride_speed: tuple = (16, 8192)    # (inc, max) stride model
+    prior_bitmask: int | None = None    # per-context CM-family mask
+    mix_weight: float | None = None     # ADV 2-model blend weight
+
+
+@dataclass
+class BlockSwitchLiteral:
+    block_type: int = 0
+    stride: int = 0
+
+
+@dataclass
+class BlockSwitchCommand:
+    block_type: int = 0
+
+
+@dataclass
+class BlockSwitchDistance:
+    block_type: int = 0
+
+
+@dataclass
+class Copy:
+    num_bytes: int = 0
+    distance: int = 0
+
+
+@dataclass
+class Dict:
+    word_size: int = 0
+    word_id: int = 0
+    transform: int = 0
+    final_size: int = 0
+
+
+@dataclass
+class Literal:
+    data: bytes = b""
+    high_entropy: bool = False
+    # external-literal-probability feature (reference interface.rs
+    # :378-420 FeatureFlagSliceType): caller-provided per-literal
+    # probabilities riding the IR for downstream recompression research
+    probs: bytes | None = None
+
+
+def _switch_types(switch_plan, ntypes):
+    """Decode the wire type symbols back to block-type ids."""
+    cur, prev = 0, 1
+    out = []
+    for s in switch_plan["type_syms"]:
+        if s == 0:
+            new = prev
+        elif s == 1:
+            new = (cur + 1) % ntypes
+        else:
+            new = s - 2
+        prev, cur = cur, new
+        out.append((new, s))
+    return out
+
+
+def ir_from_commands(data: np.ndarray, start: int, cmds, plan=None,
+                     pos_offset: int = 0, window_size: int = 1 << 62,
+                     lit_probs=None):
+    """Build the IR command list for one metablock from resolved
+    commands (the encoder-side channel, reference process_command_queue,
+    brotli_bit_stream.rs:220-418).  With a MetaBlockPlan, block-switch
+    records are interleaved at their firing points."""
+    out = []
+    lit_switches = []
+    cmd_switches = []
+    if plan is not None:
+        out.append(PredictionMode(
+            mode=plan.context_mode,
+            literal_context_map=list(map(int, plan.cmap_l)),
+            distance_context_map=list(map(int, plan.cmap_d))))
+        if plan.lit_switch:
+            at = plan.lit_switch["switch_at"]
+            types = [b for b, _ in _switch_types(plan.lit_switch,
+                                                 plan.lit_ntypes)]
+            lit_switches = list(zip(map(int, at), types))
+        if plan.cmd_switch:
+            at = plan.cmd_switch["switch_at"]
+            types = [b for b, _ in _switch_types(plan.cmd_switch,
+                                                 plan.cmd_ntypes)]
+            cmd_switches = list(zip(map(int, at), types))
+    lit_i = 0
+    cmd_i = 0
+    n_lit_seen = 0
+    pos = start
+    abs_pos = pos_offset
+    for i in range(len(cmds)):
+        while cmd_i < len(cmd_switches) and cmd_switches[cmd_i][0] == i:
+            out.append(BlockSwitchCommand(cmd_switches[cmd_i][1]))
+            cmd_i += 1
+        il = int(cmds.insert_len[i])
+        cl = int(cmds.copy_len[i])
+        av = int(cmds.copy_advance[i])
+        d = int(cmds.distance[i])
+        if il:
+            while (lit_i < len(lit_switches)
+                   and n_lit_seen <= lit_switches[lit_i][0]
+                   < n_lit_seen + il):
+                out.append(BlockSwitchLiteral(lit_switches[lit_i][1], 0))
+                lit_i += 1
+            n_lit_seen += il
+            out.append(Literal(
+                bytes(data[pos:pos + il]),
+                probs=bytes(lit_probs[pos:pos + il])
+                if lit_probs is not None else None))
+        pos += il
+        abs_pos += il
+        if cl:
+            max_distance = min(abs_pos, window_size)
+            if d > max_distance:
+                word_id = d - max_distance - 1
+                dic = get_dictionary()
+                sb = int(dic.size_bits_by_length[cl])
+                out.append(Dict(word_size=cl, word_id=word_id & ((1 << sb)
+                                                                 - 1),
+                                transform=word_id >> sb,
+                                final_size=av))
+            else:
+                out.append(Copy(num_bytes=cl, distance=d))
+            pos += av
+            abs_pos += av
+    return out

@@ -75,6 +75,16 @@ noise, slowly varying integers, random bytes), then:
                 ms a shard and the idle share, and q9 once more under
                 cProfile for the host's functions by own time; every
                 output must decode back
+  host encoder  the host encoder (no kernel; the card's machine's CPU,
+                without the JAX package's malloc tuning): compress at
+                q0, q1, q2, q3 and q5 on the whole corpus and at q9 on
+                its first 8 MiB; compress_multi with 8 parts at q5 and
+                q9 on the thread, serial and workpool backends (serial
+                must equal thread); compress_batch at q5 on 256 slices
+                of 64 KiB; compress_mesh over 8 shards on an input
+                under 8 x 4096 bytes, which must equal compress on it;
+                MB/s (one call on the host clock) and ratio for each
+                under the card line; every output must decode back
   decode path   decompress_batch_gpu on a serving batch (1024 streams
                 of 64 KiB: half compress_fast q1, half native q3), a
                 multi-round batch (8 streams of 8 MiB through
@@ -180,6 +190,8 @@ SHARD = 1 << 22             # compress_fast's shard
 CORPUS_MIB = 32
 SEED = 20261016
 MESH_SHARDS = 8             # compress_mesh: 8 shards of 4 MiB
+HOST_Q9_MIB = 8             # the host encoder's q9 on the corpus's head
+HOST_BATCH = 256            # compress_batch: slices of 64 KiB
 MESH_ROW = 8 << 20          # a shard row: a 4 MiB halo and 4 MiB shard
 # compress_mesh's folds by quality (fold_cuda.config_name)
 MESH_FOLDS = {5: ["fold_k1p3_f32b0"],
@@ -692,6 +704,68 @@ def mesh_phase(corpus, dev):
         _round_trip(name, decode, out, corpus, f"mesh q{q}")
     log(f"path mesh round trips: ok through {name}")
     return launches
+
+
+def host_encoder_phase(corpus, card):
+    """The host encoder on this machine's CPU: compress at q0, q1, q2,
+    q3 and q5 on the corpus and at q9 on its first HOST_Q9_MIB MiB;
+    compress_multi with 8 parts at q5 and q9 on the thread, serial
+    (whose bytes must equal the thread backend's) and workpool
+    backends; compress_batch on HOST_BATCH slices of 64 KiB; and
+    compress_mesh on an input under 8 x 4096 bytes, which must equal
+    compress on it.  Every output decodes back; prints MB/s (host wall
+    clock, one call) and ratio for each under the card line."""
+    from brotli_tpu_torch import (compress, compress_batch, compress_mesh,
+                                  compress_multi, make_mesh)
+    name, decode = _decoder()
+    log(f"host encoder phase on {card}")
+
+    def run(what, data, call):
+        t0 = time.perf_counter()
+        out = call()
+        dt = time.perf_counter() - t0
+        n_out = sum(map(len, out)) if isinstance(out, list) else len(out)
+        log(f"host {what}: {len(data) / dt / 1e6:.2f} MB/s, ratio "
+            f"{len(data) / n_out:.4f} ({len(data)} -> {n_out} bytes, "
+            f"{dt:.3f} s)")
+        return out
+
+    for q in (0, 1, 2, 3, 5):
+        out = run(f"compress q{q}", corpus,
+                  lambda q=q: compress(corpus, quality=q, lgwin=22))
+        _round_trip(name, decode, out, corpus, f"host compress q{q}")
+    head = corpus[:HOST_Q9_MIB << 20]
+    out = run(f"compress q9 ({HOST_Q9_MIB} MiB)", head,
+              lambda: compress(head, quality=9, lgwin=22))
+    _round_trip(name, decode, out, head, "host compress q9")
+    for q in (5, 9):
+        outs = {}
+        for backend in ("thread", "serial", "workpool"):
+            outs[backend] = run(
+                f"compress_multi q{q} 8 parts {backend}", corpus,
+                lambda q=q, b=backend: compress_multi(
+                    corpus, 8, quality=q, lgwin=22, backend=b))
+            _round_trip(name, decode, outs[backend], corpus,
+                        f"host compress_multi q{q} {backend}")
+        if outs["serial"] != outs["thread"]:
+            raise AssertionError(f"compress_multi q{q}: serial and thread "
+                                 "backends differ")
+    stride = (len(corpus) - (64 << 10)) // (HOST_BATCH - 1)
+    slices = [corpus[k * stride:k * stride + (64 << 10)]
+              for k in range(HOST_BATCH)]
+    total = b"".join(slices)
+    outs = run(f"compress_batch q5 {HOST_BATCH} x 64 KiB", total,
+               lambda: compress_batch(slices, quality=5, lgwin=22))
+    for k, (out, piece) in enumerate(zip(outs, slices)):
+        _round_trip(name, decode, out, piece, f"host compress_batch {k}")
+    small = corpus[:MESH_SHARDS * 4096 - 1]
+    got = compress_mesh(small, mesh=make_mesh(MESH_SHARDS), quality=5,
+                        lgwin=22)
+    if got != compress(small, quality=5, lgwin=22):
+        raise AssertionError("compress_mesh under 8 x 4096 bytes differs "
+                             "from compress")
+    _round_trip(name, decode, got, small, "host compress_mesh small")
+    log(f"host round trips: ok through {name}")
 
 
 def cpu_check(corpus, dev):
@@ -1325,6 +1399,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["mesh"] = mesh_phase(corpus, dev)
     log(f"mesh phase wall: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    host_encoder_phase(corpus, card)
+    log(f"host encoder phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ds_serving, ds_launches = decode_path_phase(corpus, dev, enc,
                                                 step_insns)

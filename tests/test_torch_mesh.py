@@ -4,8 +4,10 @@ against the JAX package, on the CPU.
 compress_mesh(device="cpu") must equal brotli_tpu.parallel.mesh.
 compress_mesh over make_mesh(n) of the conftest's virtual CPU devices
 byte for byte (the JAX side runs its Pallas folds in interpret mode),
-decode through the system libbrotlidec, and stay within 1% of
-brotli_tpu's compress_multi at the same shard count; sharded_pipeline
+on small inputs (the host encoder) and on blocks the native store
+refuses too, decode through the system libbrotlidec, and stay within 1%
+of the port's compress_multi (equal to brotli_tpu's) at the same shard
+count; sharded_pipeline
 and match_pipeline must give the JAX pipelines' arrays; the port's
 BroCatli must merge and refuse as the JAX one does; entry()'s step must
 give the JAX step's arrays.  Inputs: a repeated phrase with seeded
@@ -23,11 +25,13 @@ import pytest
 import torch
 
 from . import oracle
+import brotli_tpu
+from brotli_tpu import native_bridge as jnb
 from brotli_tpu.concat.brocatli import BroCatli as JaxBroCatli
 from brotli_tpu.parallel import mesh as JM
 from brotli_tpu.parallel import multi as JMULTI
 from brotli_tpu.encode.params import EncoderParams as JaxParams
-from brotli_tpu_torch import compress_mesh, make_mesh
+from brotli_tpu_torch import compress_mesh, compress_multi, make_mesh
 from brotli_tpu_torch import entry as E
 from brotli_tpu_torch import native_bridge as nb
 from brotli_tpu_torch.concat.brocatli import BroCatli, BroCatliResult
@@ -92,40 +96,46 @@ def test_dryrun_multichip_within_one_percent_of_compress_multi():
     out = E.dryrun_multichip(8, device="cpu")
     data = E.dryrun_data()
     _decodes(out, data)
-    ref = JMULTI.compress_multi(data, 8, quality=9, lgwin=16,
-                                backend="serial")
+    ref = compress_multi(data, 8, quality=9, lgwin=16, backend="serial")
+    assert ref == JMULTI.compress_multi(data, 8, quality=9, lgwin=16,
+                                        backend="serial")
     assert len(out) <= len(ref) * 1.01
 
 
-def test_compress_mesh_small_input_raises():
-    with pytest.raises(NotImplementedError, match="host encoder"):
-        compress_mesh(b"x" * (8 * 4096 - 1), n_shards=8, device="cpu")
+@pytest.mark.parametrize("size", [0, 1, 5_000, 8 * 4096 - 1])
+def test_compress_mesh_small_input_matches_jax(size):
+    """Under 4096 bytes a shard the input goes to the host encoder."""
+    data = _phrases(size)
+    want = JM.compress_mesh(data, mesh=JM.make_mesh(8), quality=5,
+                            lgwin=16, lgblock=16)
+    got = compress_mesh(data, n_shards=8, quality=5, lgwin=16, lgblock=16,
+                        device="cpu")
+    assert got == want == brotli_tpu.compress(data, quality=5, lgwin=16)
+    _decodes(got, data)
 
 
-def test_refused_block_the_native_store_would_keep_raises(monkeypatch):
-    """Below quality 4, a block the native store refuses but measures at
-    <= 8 * mlen + 40 bits needs the JAX package's pure-Python trivial
-    store: it raises."""
-    calls = []
-
-    def refuse_then_fit(*a, cap_bits=None, **k):
-        calls.append(cap_bits)
-        return None if cap_bits is None else (np.zeros(1, np.uint64), 8,
-                                              [4, 11, 15, 16])
-
-    monkeypatch.setattr(nb, "encode_metablock", refuse_then_fit)
-    with pytest.raises(NotImplementedError, match="trivial store"):
-        compress_mesh(_phrases(20_000), n_shards=1, quality=2, lgwin=16,
-                      device="cpu")
-    assert calls == [None, 16 * 20_000 + (1 << 17)]
+def test_refused_block_below_q4_matches_jax(monkeypatch):
+    """Below quality 4, a block that both packages' native store refuses
+    is stored with the trivial store and kept under 8 * mlen + 40 bits,
+    as the JAX package keeps it."""
+    data = _phrases(60_000)
+    outs = []
+    for mod, fn, mesh in ((jnb, JM.compress_mesh, JM.make_mesh(2)),
+                          (nb, compress_mesh, make_mesh(2, device="cpu"))):
+        monkeypatch.setattr(mod, "encode_metablock", lambda *a, **k: None)
+        outs.append(fn(data, mesh=mesh, quality=2, lgwin=16))
+    assert outs[1] == outs[0]
+    assert len(outs[1]) < len(data) // 2
+    _decodes(outs[1], data)
 
 
 def test_compress_mesh_keeps_refused_low_entropy_blocks_like_jax(monkeypatch):
     """Seeded bytes of 180 symbols (about 7.5 bits a byte, almost no
     match): at lgblock 16 the native store refuses every full metablock
     for its long insert, and the JAX package's pure-Python store keeps
-    it compressed.  At quality >= 4 the port keeps the native store's
-    bytes on a worst-case buffer, which must equal the JAX package's."""
+    it compressed.  At quality >= 4 the port's store_meta_block_auto
+    keeps the native store's bytes on a worst-case buffer, which must
+    equal the JAX package's."""
     calls = []
     real = nb.encode_metablock
 

@@ -28,7 +28,10 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
         "brotli_tpu_torch.research.radix_probe2, "
         "brotli_tpu_torch.research.hist8_ab, "
         "brotli_tpu_torch.parallel.mesh, brotli_tpu_torch.entry, "
-        "brotli_tpu_torch.utils.profiling\n"
+        "brotli_tpu_torch.utils.profiling, "
+        "brotli_tpu_torch.encode.encoder, brotli_tpu_torch.encode.batch, "
+        "brotli_tpu_torch.parallel.multi, brotli_tpu_torch.utils.ir\n"
+        "from brotli_tpu_torch import *\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'brotli_tpu' or "
         "m.startswith('brotli_tpu.'))\n"
