@@ -10,10 +10,18 @@ Host entry points (the native runtime, no tensor, no torch import):
   compress(data, quality=11, lgwin=22, lgblock=0, mode=0, catable=False,
            appendable=False, bare=False, byte_align=False,
            magic_number=False, large_window=False, custom_dictionary=b"",
-           ..., metablock_callback=None) -> bytes
-      q0-q9, byte-identical to brotli_tpu.compress; quality >= 10,
-      q9_5 and q10_deep raise NotImplementedError (the optimal parser
-      is not ported yet)
+           q9_5=False, q10_deep=False, ..., metablock_callback=None)
+      -> bytes
+      q0-q11 (and 12, the deeper -q9.5y tier), byte-identical to
+      brotli_tpu.compress; quality 10 and above run the optimal parser
+  decompress(data, custom_dictionary=b"", large_window=False) -> bytes
+      the native decoder, or Decoder where the runtime does not build;
+      raises BrotliDecodeError (corrupt) or NeedsMoreInput (truncated)
+  Decoder(custom_dictionary=b"", large_window=False).decompress(data)
+      the pure-Python one-shot decoder, equal to brotli_tpu.Decoder
+  decompress_batch(streams, custom_dictionary=b"", large_window=False,
+                   threads=8, size_hints=None) -> list of bytes
+      independent streams decoded side by side
   compress_multi(data, num_parts, quality=9, lgwin=22, mode=0,
                  backend="thread", favor_cpu_efficiency=False) -> bytes
       parts compressed side by side and merged with BroCatli (backends
@@ -50,10 +58,14 @@ PyTorch versions run instead.
 import importlib
 
 from .concat.brocatli import BroCatli, BroCatliResult, concatenate
+from .decode.batch import decompress_batch
+from .decode.decoder import BrotliDecodeError, Decoder, decompress
 from .encode.batch import compress_batch
 from .encode.encoder import compress
 from .encode.params import EncoderParams
 from .parallel.multi import compress_multi
+
+__version__ = "0.1.0"
 
 # the device entry points and the modules that hold them
 _DEVICE_ENTRIES = {
@@ -78,7 +90,9 @@ def __getattr__(name):
     return value
 
 
-__all__ = ["BroCatli", "BroCatliResult", "EncoderParams", "compress",
-           "compress_batch", "compress_fast", "compress_gpu",
-           "compress_mesh", "compress_multi", "concatenate",
-           "decompress_batch_gpu", "make_mesh", "resolve_device"]
+__all__ = ["BroCatli", "BroCatliResult", "BrotliDecodeError", "Decoder",
+           "EncoderParams", "__version__", "compress", "compress_batch",
+           "compress_fast", "compress_gpu", "compress_mesh",
+           "compress_multi", "concatenate", "decompress",
+           "decompress_batch", "decompress_batch_gpu", "make_mesh",
+           "resolve_device"]

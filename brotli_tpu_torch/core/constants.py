@@ -1,12 +1,14 @@
-"""RFC 7932 format constants used by the device compress and decode paths.
+"""RFC 7932 format constants used by the port's encoders and decoders.
 
 A trimmed copy of brotli_tpu/core/constants.py: the distance cache
 seed, the literal context modes and their lookup tables (loaded from
 this package's data/context_lut.npy), the window-bits header code, the
 dictionary word bounds, what the trivial metablock store reads -- the
 insert/copy length codes, the command cells and the code-length code
-tables -- and what the batch decoder reads: the distance short codes
-and the distance alphabet size.
+tables -- and what the decoders read: the block length codes, the
+distance short codes, distance symbols and their extra bits, and the
+distance alphabet size.  The optimal parser prices commands through
+combine_length_codes and distances through encode_distance.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ _DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "data")
 
 NUM_DISTANCE_SHORT_CODES = 16
 
+MIN_WINDOW_BITS = 10
 LARGE_MAX_WINDOW_BITS = 30
 
 MIN_DICTIONARY_WORD_LENGTH = 4
@@ -26,6 +29,7 @@ MAX_DICTIONARY_WORD_LENGTH = 24
 NUM_TRANSFORMS = 121
 
 MAX_HUFF_BITS = 15  # max depth of any prefix code in the format
+NUM_BLOCK_LEN_SYMBOLS = 26
 
 # Insert / copy length codes (RFC 7932 section 5)
 INSERT_EXTRA = np.array(
@@ -39,6 +43,14 @@ COPY_EXTRA = np.array(
      5, 5, 6, 7, 8, 9, 10, 24], dtype=np.int64)
 COPY_BASE = np.full(24, 2, dtype=np.int64)
 COPY_BASE[1:] += np.cumsum(1 << COPY_EXTRA)[:-1]
+
+
+# Block length codes (RFC 7932 section 6)
+BLOCK_LEN_EXTRA = np.array(
+    [2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5,
+     6, 6, 7, 8, 9, 10, 11, 12, 13, 24], dtype=np.int64)
+BLOCK_LEN_BASE = np.ones(26, dtype=np.int64)
+BLOCK_LEN_BASE[1:] += np.cumsum(1 << BLOCK_LEN_EXTRA)[:-1]
 
 
 def get_insert_length_code(insert_len):
@@ -76,6 +88,20 @@ for _cell, (_ib, _cb, _imp) in enumerate(_CELLS):
     CMD_TO_COPY_CODE[_idx] = _cb + (np.arange(64) & 7)
     CMD_IMPLICIT_DIST0[_idx] = _imp
 
+def combine_length_codes(ins_code, copy_code, use_last_distance):
+    """(insert code, copy code, distance code 0?) -> command symbol,
+    vectorized; the inverse of the CMD_TO_* tables."""
+    ins_code = np.asarray(ins_code, dtype=np.int64)
+    copy_code = np.asarray(copy_code, dtype=np.int64)
+    use_last = np.asarray(use_last_distance, dtype=bool)
+    bits64 = (copy_code & 7) | ((ins_code & 7) << 3)
+    short = use_last & (ins_code < 8) & (copy_code < 16)
+    short_code = bits64 + np.where(copy_code < 8, 0, 64)
+    sub = 2 * ((copy_code >> 3) + 3 * (ins_code >> 3))
+    offset = (sub << 5) + 0x40 + ((0x520D40 >> sub) & 0xC0)
+    return np.where(short, short_code, offset | bits64)
+
+
 # Distance short codes 0..15 as (cache index, delta) (RFC 7932 section 4)
 DISTANCE_SHORT_CODE_INDEX = np.array(
     [0, 1, 2, 3, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 1], dtype=np.int64)
@@ -89,6 +115,46 @@ def distance_alphabet_size(npostfix: int, ndirect: int,
     bits for a regular stream)."""
     return NUM_DISTANCE_SHORT_CODES + ndirect + (max_distbits
                                                  << (npostfix + 1))
+
+def decode_distance(dcode, npostfix, ndirect, extra):
+    """Distance symbol (>= 16 + ndirect) and its extra bits ->
+    distance."""
+    h = dcode - ndirect - NUM_DISTANCE_SHORT_CODES
+    hcode = h >> npostfix
+    lcode = h & ((1 << npostfix) - 1)
+    ndistbits = 1 + (hcode >> 1)
+    offset = ((2 + (hcode & 1)) << ndistbits) - 4
+    return ((offset + extra) << npostfix) + lcode + ndirect + 1
+
+
+def num_distance_extra_bits(dcode, npostfix, ndirect):
+    h = np.asarray(dcode, dtype=np.int64) - ndirect - NUM_DISTANCE_SHORT_CODES
+    return 1 + ((h >> npostfix) >> 1)
+
+
+def encode_distance(distance, npostfix, ndirect):
+    """Distance (> ndirect, no short code) -> (symbol, extra, extra
+    bits), vectorized; the inverse of decode_distance.  The two hcode
+    buckets of ndistbits = n cover dp in [2^(n+1) - 4, 2^(n+2) - 4), so
+    n = floor(log2(dp + 4)) - 1."""
+    d = np.asarray(distance, dtype=np.int64) - ndirect - 1
+    lcode = d & ((1 << npostfix) - 1)
+    dp = d >> npostfix
+    n = (np.int64(np.log2(dp + 4 + 1e-9))
+         if np.ndim(dp) == 0 else np.log2(dp + 4 + 1e-9).astype(np.int64)) - 1
+    prefix = ((dp + 4) >> n) & 1
+    extra = dp + 4 - ((2 + prefix) << n)
+    hcode = 2 * (n - 1) + prefix
+    sym = NUM_DISTANCE_SHORT_CODES + ndirect + ((hcode << npostfix) | lcode)
+    return sym, extra, n
+
+
+def distance_context_from_copy_len(copy_len):
+    """2-bit distance context (RFC 7932 section 7.2): min(copy_len, 5)
+    - 2, clamped at 0."""
+    cl = np.asarray(copy_len, dtype=np.int64)
+    return np.clip(cl, 2, 5) - 2
+
 
 # Code-length code (RFC 7932 section 3.5): the order its lengths are
 # sent in, and the fixed code of those lengths (LSB-first bits, nbits)

@@ -2,9 +2,9 @@
 
 A trimmed copy of brotli_tpu/core/dictionary.py: the tables load from
 this package's data/ directory (dictionary.bin, dictionary_meta.npz,
-transforms.npz).  The encoder's dictionary matcher, the native
-decoder's dictionary install and the batch decoder (transform output
-lengths, RFC 7932 section 8) read them.
+transforms.npz).  The encoder's dictionary matchers, the native
+decoder's dictionary install, the batch decoder (transform output
+lengths, RFC 7932 section 8) and the host Decoder (resolve) read them.
 """
 
 from __future__ import annotations
@@ -50,6 +50,27 @@ class StaticDictionary:
                 <= MAX_DICTIONARY_WORD_LENGTH):
             return 0
         return 1 << int(self.size_bits_by_length[length])
+
+    def word(self, length: int, index: int) -> bytes:
+        off = int(self.offsets_by_length[length]) + length * index
+        return self.data[off:off + length]
+
+    def transformed(self, length: int, index: int,
+                    transform_id: int) -> bytes:
+        return apply_transform(self, self.word(length, index), transform_id)
+
+    def resolve(self, copy_len: int, word_id: int) -> bytes:
+        """The output of a dictionary reference (RFC 7932 section 8):
+        word_id is its 0-based address beyond the maximum distance.
+        Raises ValueError for an invalid reference."""
+        n = self.num_words(copy_len)
+        if n == 0:
+            raise ValueError(f"invalid dictionary word length {copy_len}")
+        index = word_id & (n - 1)
+        transform_id = word_id >> int(self.size_bits_by_length[copy_len])
+        if transform_id >= NUM_TRANSFORMS:
+            raise ValueError(f"invalid transform id {transform_id}")
+        return self.transformed(copy_len, index, transform_id)
 
 
 def _ferment(buf: bytearray, i: int) -> int:

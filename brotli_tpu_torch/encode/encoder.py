@@ -1,4 +1,4 @@
-"""The host encoder: one-shot compress at qualities 0-9, quality
+"""The host encoder: one-shot compress at qualities 0-11, quality
 dispatch and stream assembly.
 
 The port's copy of brotli_tpu/encode/encoder.py, byte for byte the same
@@ -17,10 +17,13 @@ q4-q9 run the native search + parse one metablock at a time (a parse
 session, prefetched one metablock ahead, or two sessions on inputs of
 2 MiB and more) into one fused resolve + plan + serialize call per
 metablock.  A metablock_callback or a stream_offset selects the
-unfused loop, which resolves the commands in Python first.  Quality
-10 and above, q9_5 and q10_deep run the optimal parser
-(brotli_tpu/encode/zopfli.py), not ported yet: they raise
-NotImplementedError (ROADMAP.md, queue 1).
+unfused loop, which resolves the commands in Python first.  Quality 10
+and above runs the optimal parser (encode/zopfli.py) one metablock at a
+time, its candidates collected one metablock ahead, into the unfused
+loop, which searches each metablock's NPOSTFIX/NDIRECT there: q9_5
+(quality 10, or 12 for the deeper -q9.5y tier) and plain q10 parse with
+one cost-model iteration, q10_deep with two, q11 with up to Q11_ITERS.
+Below quality 10, q9_5 and q10_deep change nothing.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ from ..core.bitio import BitWriter
 from ..utils.ir import ir_from_commands
 from . import bitstream as bs
 from .command import resolve_commands
-from .metablock import choose_context_mode, choose_literal_context_map
+from .metablock import (choose_context_mode, choose_distance_params,
+                        choose_literal_context_map)
 from .params import EncoderParams
+from .zopfli import zopfli_collect, zopfli_segment
 
 # Catable streams poison the initial distance cache so no command can rely
 # on the RFC's initial {4, 11, 15, 16} values, which would differ when the
@@ -70,8 +75,7 @@ def compress(data, quality: int = 11, lgwin: int = 22, lgblock: int = 0,
     metablock_callback: called once per metablock with the list of IR
     commands (utils.ir vocabulary) for that block and the block's
     bytes.  literal_probabilities: one byte a input byte, carried on
-    the IR's Literal records.  Quality >= 10, q9_5 and q10_deep raise
-    NotImplementedError."""
+    the IR's Literal records."""
     data = np.frombuffer(bytes(data), dtype=np.uint8)
     params = EncoderParams(
         quality=quality, lgwin=lgwin, lgblock=lgblock, mode=mode,
@@ -258,6 +262,51 @@ def _dual_parse_segments(full, params, boundaries, dlen, start, cache,
         sb.close()
 
 
+def _zopfli_segments(full, params, boundaries, dlen, start, cache):
+    """The optimal parse's segments, one per boundary.  Each metablock is
+    parsed with up to a window of the bytes before it as its dictionary
+    and from the rolling distance cache `cache`, a list the store loop
+    updates in place before it asks for the next segment; metablock g +
+    1's candidates (cache-independent) are collected on a worker thread
+    while g is parsed and stored, one metablock ahead and no further."""
+    if params.q9_5:
+        iters = 2 if params.quality >= 12 else 1
+    elif params.quality == 10 and not params.q10_deep:
+        # the reference maps one-shot q10 to 9.5 (encode.rs:1470-1482)
+        iters = 1
+    else:
+        iters = None
+
+    def region(i):
+        region_start = dlen + (start if i == 0 else boundaries[i - 1])
+        keep = min(region_start, params.window_size)
+        return full[region_start - keep:dlen + boundaries[i]], keep
+
+    if len(boundaries) == 1:
+        r, keep = region(0)
+        yield zopfli_segment(r, params, dict_len=keep,
+                             initial_cache=tuple(cache), iters=iters)
+        return
+
+    def collect(i):
+        r, keep = region(i)
+        return zopfli_collect(r, params, keep, iters)
+
+    ex = ThreadPoolExecutor(max_workers=1)
+    try:
+        pending = ex.submit(collect, 0)
+        for i in range(len(boundaries)):
+            col = pending.result()
+            if i + 1 < len(boundaries):
+                pending = ex.submit(collect, i + 1)
+            r, keep = region(i)
+            yield zopfli_segment(r, params, dict_len=keep,
+                                 initial_cache=tuple(cache), iters=iters,
+                                 precollected=col)
+    finally:
+        ex.shutdown(wait=True)
+
+
 def _pipelined_fragment_segments(full, params, boundaries, start):
     """The fragment tier's _pipelined_segments: one fragment_parse_seg
     call per metablock, prefetched one boundary ahead on a single
@@ -290,12 +339,6 @@ def compress_with_params(data: np.ndarray, params: EncoderParams,
     """The stream of `data` under sanitized `params`.  pipeline=False
     parses in the calling thread (CompressMulti's workers, each already
     one shard on one core)."""
-    if params.quality >= 10 or params.q9_5 or params.q10_deep:
-        raise NotImplementedError(
-            f"quality {params.quality} (q9_5={params.q9_5}, q10_deep="
-            f"{params.q10_deep}) runs the optimal parser of "
-            "brotli_tpu/encode/zopfli.py, not ported yet (ROADMAP.md, "
-            "queue 1: q9.5-q11)")
     n = len(data)
     w = BitWriter()
     # only catable+bare streams omit the window header (reference
@@ -336,7 +379,10 @@ def compress_with_params(data: np.ndarray, params: EncoderParams,
     # does not decode where a distance tree is a simple prefix code
     whole = (dlen == 0 and start == 0 and metablock_callback is None
              and params.stream_offset == 0 and not params.large_window)
-    if params.quality <= 1 and dlen == 0:
+    if params.quality >= 10:
+        segments = _zopfli_segments(full, params, boundaries, dlen, start,
+                                    cache)
+    elif params.quality <= 1 and dlen == 0:
         # q0/q1 fragment tier (reference BrotliCompressFragmentFast):
         # one direct-mapped table, greedy one-pass, miss-skip stride, no
         # dictionary and no distance-cache probes
@@ -373,7 +419,8 @@ def compress_with_params(data: np.ndarray, params: EncoderParams,
         segments = _serial_segments(full, params, boundaries, dlen, start,
                                     tuple(cache), knobs)
 
-    if metablock_callback is None and params.stream_offset == 0:
+    if (metablock_callback is None and params.stream_offset == 0
+            and params.quality < 10):
         _store_fused(w, data, full, dlen, start, segments, boundaries,
                      params, cache)
     else:
@@ -445,7 +492,11 @@ def _store_unfused(w, full, dlen, start, segments, boundaries, params,
                    cache, metablock_callback, literal_probabilities):
     """Commands resolved in Python, handed to the IR callback, then
     stored: the optimized native store at q4 and above, the trivial
-    store below."""
+    store below.  At quality 10 and above each metablock takes the
+    NPOSTFIX/NDIRECT of least distance-stream cost (reference
+    BrotliBuildMetaBlock, metablock.rs:158-208) unless
+    avoid_distance_prefix_search.  `cache`, the rolling distance cache,
+    is updated in place after each metablock kept compressed."""
     suppress = params.appendable or params.byte_align
     probs_full = None
     if literal_probabilities is not None:
@@ -461,9 +512,21 @@ def _store_unfused(w, full, dlen, start, segments, boundaries, params,
         # :2165)
         is_last = i == len(boundaries) - 1 and not suppress
         pos_offset = dlen + seg_start + params.stream_offset
+        dist_params = params.dist
         cmds, new_cache = resolve_commands(
-            ins, cps, dst, params.dist, advance=adv, initial_cache=cache,
+            ins, cps, dst, dist_params, advance=adv, initial_cache=cache,
             pos_offset=pos_offset, window_size=params.window_size)
+        if params.quality >= 10 and not params.avoid_distance_prefix_search:
+            better = choose_distance_params(
+                cmds.distance, cmds.copy_len > 0, cmds.dist_code,
+                large_window=params.large_window)
+            if (better.npostfix, better.ndirect) != (dist_params.npostfix,
+                                                     dist_params.ndirect):
+                dist_params = better
+                cmds, new_cache = resolve_commands(
+                    ins, cps, dst, dist_params, advance=adv,
+                    initial_cache=cache, pos_offset=pos_offset,
+                    window_size=params.window_size)
         if metablock_callback is not None:
             ir_cmds = ir_from_commands(
                 full, dlen + seg_start, cmds, pos_offset=pos_offset,
@@ -471,11 +534,11 @@ def _store_unfused(w, full, dlen, start, segments, boundaries, params,
             metablock_callback(
                 ir_cmds, bytes(full[dlen + seg_start:dlen + boundary]))
         if bs.store_meta_block_or_raw(
-                w, full, dlen + seg_start, mlen, cmds, params.dist,
+                w, full, dlen + seg_start, mlen, cmds, dist_params,
                 params.quality, params.size_hint, params.mode, is_last,
                 disable_literal_context_modeling=params.
                 disable_literal_context_modeling):
-            cache = new_cache
+            cache[:] = new_cache
         seg_start = boundary
 
 

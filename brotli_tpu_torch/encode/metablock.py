@@ -1,5 +1,5 @@
-"""Metablock decisions made on the host: literal context modeling and
-the host half of block splitting.
+"""Metablock decisions made on the host: literal context modeling, the
+host half of block splitting and the distance parameters.
 
 A copy of the path's part of brotli_tpu/encode/metablock.py.  Context
 modeling mirrors the reference's static-map decision tree
@@ -7,14 +7,23 @@ modeling mirrors the reference's static-map decision tree
 ShouldUseComplexStaticContextMap) with the same entropy thresholds and
 the same three static maps.  The block-split helpers (run hysteresis,
 header-cost merge, run-length encoding) finish what the device Lloyd
-loop in ops/split.py starts.
+loop in ops/split.py starts.  choose_distance_params is the optimal
+parser's per-metablock NPOSTFIX/NDIRECT search.
 """
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from ..core import constants as C
+from ..core.bitio import BitWriter
+from ..core.huffman import (build_huffman_lengths, code_bit_cost,
+                            optimize_counts_for_rle)
+from ..core.prefix import write_prefix_code
+from .params import DistanceParams
 
 # Static literal context maps (reference encode.rs:1724-1800).
 STATIC_CONTEXT_MAP_CONTINUATION = np.zeros(64, dtype=np.int64)
@@ -257,3 +266,84 @@ def _runs(types: np.ndarray):
     starts = np.concatenate([[0], edges])
     ends = np.concatenate([edges, [n]])
     return [(int(types[s]), int(e - s)) for s, e in zip(starts, ends)]
+
+
+_DIST_LANE_POOL = None
+_DIST_LANE_LOCK = threading.Lock()
+
+
+def _dist_lane_pool():
+    """The four npostfix lanes' worker pool, made once (a pool a
+    metablock paid a thread spawn and join on every one); made under a
+    lock so that concurrent first callers share one."""
+    global _DIST_LANE_POOL
+    with _DIST_LANE_LOCK:
+        if _DIST_LANE_POOL is None:
+            _DIST_LANE_POOL = ThreadPoolExecutor(max_workers=4)
+    return _DIST_LANE_POOL
+
+
+def _dist_stream_cost(hist: np.ndarray, extra_cost: int) -> float:
+    """The written cost of a distance symbol stream: its depth-limited
+    Huffman code's bits plus the serialized tree plus the extra bits."""
+    h = hist if hist.sum() else np.array([1], dtype=np.int64)
+    lengths = build_huffman_lengths(optimize_counts_for_rle(h))
+    w = BitWriter()
+    write_prefix_code(w, lengths)
+    return float(code_bit_cost(h, lengths)) + w.bit_length() + extra_cost
+
+
+def choose_distance_params(distances: np.ndarray, copy_mask: np.ndarray,
+                           dist_codes_now: np.ndarray,
+                           large_window: bool = False) -> DistanceParams:
+    """The (npostfix, ndirect) of least distance-stream cost (reference
+    BrotliBuildMetaBlock, metablock.rs:158-208), the cost measured as
+    the stream is written (_dist_stream_cost), with the full symbol
+    histogram, short codes included.  Each npostfix lane sweeps its 16
+    NDIRECT values and stops once the cost rises past its best; lanes
+    of 2^15 distances or more run on the shared pool.  Ties go to the
+    first lane."""
+    long_mask = copy_mask & (dist_codes_now >= 16)
+    dists = distances[long_mask]
+    short_hist = np.bincount(dist_codes_now[copy_mask & ~long_mask],
+                             minlength=16)[:16]
+    if len(dists) == 0:
+        return DistanceParams(large_window=large_window)
+
+    def lane(npostfix):
+        lbest = None
+        prev = None
+        for wire in range(16):  # NDIRECT = wire << npostfix (4 bits)
+            ndirect = wire << npostfix
+            direct = dists <= ndirect
+            far = dists[~direct]
+            if len(far):
+                sym, _, nbits = C.encode_distance(far, npostfix, ndirect)
+                hist = np.bincount(sym, minlength=16 + ndirect)
+                extra_cost = int(nbits.sum())
+            else:
+                hist = np.zeros(16 + ndirect, dtype=np.int64)
+                extra_cost = 0
+            hist[:16] += short_hist
+            if direct.any():
+                hist[16:16 + ndirect] += np.bincount(
+                    dists[direct] - 1, minlength=ndirect)
+            total = _dist_stream_cost(hist, extra_cost)
+            if lbest is None or total < lbest[0]:
+                lbest = (total, npostfix, ndirect)
+            # two strikes: the cost may dip once at a small ndirect
+            if prev is not None and total > prev and total > lbest[0]:
+                break
+            prev = total
+        return lbest
+
+    if len(dists) >= (1 << 15):
+        lane_bests = list(_dist_lane_pool().map(lane, range(4)))
+    else:
+        lane_bests = [lane(npf) for npf in range(4)]
+    best = None
+    for lb in lane_bests:
+        if lb is not None and (best is None or lb[0] < best[0]):
+            best = lb
+    return DistanceParams(npostfix=best[1], ndirect=best[2],
+                          large_window=large_window)

@@ -1,11 +1,18 @@
 """Encoder-side static dictionary matching (vectorized, host).
 
-A copy of the path's part of brotli_tpu/encode/static_dict.py.  The
-index is built once from the RFC dictionary and probed for all
+A copy of brotli_tpu/encode/static_dict.py's native paths.  The greedy
+tiers' index is built once from the RFC dictionary and probed for all
 positions in one pass: hash the 4-byte prefix at every position,
 gather the bucket's candidate words, verify with a masked [n, 24] byte
 compare.  A reference encodes as distance = max_distance + 1 + word_id
 (RFC 8), with the identity or an OmitLast transform.
+
+The optimal parser takes every transform: collect_dict_matches returns
+all dictionary matches of a region through the runtime's predecessor
+search over the sorted index of every (word x transform) output
+(sorted_dict_index).  expanded_dict_index is the same set of outputs
+hashed by their 4-byte prefix, for the runtime's hashed collector
+(native_bridge.collect_dict).
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from ..core.dictionary import OMIT_LAST_1, get_dictionary
+from ..core.dictionary import OMIT_LAST_1, apply_transform, get_dictionary
 
 HASH_MUL32 = 0x1E35A7BD
 DICT_HASH_BITS = 15
@@ -149,3 +156,84 @@ def add_dictionary_matches(data: np.ndarray, dict_len: int,
             best_score[u] = sc[upd]
             best_isdict[u] = True
             best_wire[u] = Ls[upd]
+
+
+EXT_HASH_BITS = 20
+EXT_SLOTS = 12
+EXT_MAX_OUT = 38
+
+
+@lru_cache(maxsize=1)
+def expanded_dict_index():
+    """Every (word x transform) output of 4 to EXT_MAX_OUT bytes, keyed
+    by the 4-byte prefix of the transformed output, so case and affix
+    variants are found by the probe that finds identity matches (the
+    reference's transform-aware search, BrotliFindAllStaticDictionary
+    Matches, hand-tests each transform class instead).  Returns
+    (entry_bytes[m, 38], out_len[m], wire[m], wid[m], table[2^20, 12]);
+    a bucket keeps its EXT_SLOTS shortest entries."""
+    d = get_dictionary()
+    data = np.frombuffer(d.data, dtype=np.uint8)
+    eb, eo, ew, ewid = [], [], [], []
+    for length in range(4, MAX_WORD_LEN + 1):
+        nwords = d.num_words(length)
+        if nwords == 0:
+            continue
+        off = int(d.offsets_by_length[length])
+        bits = int(d.size_bits_by_length[length])
+        words = [bytes(data[off + i * length: off + (i + 1) * length])
+                 for i in range(nwords)]
+        for t in range(len(d.t_type)):
+            for i, w in enumerate(words):
+                out = apply_transform(d, w, t)
+                if 4 <= len(out) <= EXT_MAX_OUT:
+                    eb.append(out)
+                    eo.append(len(out))
+                    ew.append(length)
+                    ewid.append((t << bits) | i)
+    m = len(eb)
+    entry_bytes = np.zeros((m, EXT_MAX_OUT), dtype=np.uint8)
+    for i, out in enumerate(eb):
+        entry_bytes[i, :len(out)] = np.frombuffer(out, np.uint8)
+    out_len = np.asarray(eo, dtype=np.int64)
+    wire = np.asarray(ew, dtype=np.int64)
+    wid = np.asarray(ewid, dtype=np.int64)
+    v = (entry_bytes[:, 0].astype(np.uint32)
+         | (entry_bytes[:, 1].astype(np.uint32) << 8)
+         | (entry_bytes[:, 2].astype(np.uint32) << 16)
+         | (entry_bytes[:, 3].astype(np.uint32) << 24))
+    h = ((v * np.uint32(HASH_MUL32))
+         >> np.uint32(32 - EXT_HASH_BITS)).astype(np.int64)
+    order = np.lexsort((out_len, h))
+    hs = h[order]
+    rank = np.arange(m) - np.searchsorted(hs, hs, side="left")
+    keep = rank < EXT_SLOTS
+    table = np.full((1 << EXT_HASH_BITS, EXT_SLOTS), -1, dtype=np.int32)
+    table[hs[keep], rank[keep]] = order[keep].astype(np.int32)
+    return entry_bytes, out_len, wire, wid, table
+
+
+@lru_cache(maxsize=1)
+def sorted_dict_index():
+    """Every unique transformed output, sorted by its 0-padded bytes and
+    then its length, each kept at its cheapest encoding (the least word
+    id): (sorted_bytes[m, 38], out_len, wire, wid), row-aligned.  The
+    runtime builds it (zopfli_hq.cpp build_sorted_index); the JAX
+    package's numpy builder, its fallback, is not ported."""
+    from .. import native_bridge as nb
+    return nb.sorted_dict_index_native()
+
+
+def collect_dict_matches(data: np.ndarray, dict_len: int, window_size: int,
+                         progress=None, out=None):
+    """Every static-dictionary match (every transform) of data[dict_len:]
+    as sparse candidates for the optimal parser: (pos, out_len,
+    pseudo_dist, wire), pos relative to the region's start, sorted by
+    position.  The DP prices each against window matches and literals
+    (reference hq.rs:707).  progress and out: see
+    native_bridge.collect_dict_sorted (None where `out` overflows)."""
+    from .. import native_bridge as nb
+    if len(data) - dict_len < 4:
+        return (np.zeros(0, np.int64),) * 4
+    return nb.collect_dict_sorted(data, dict_len, window_size,
+                                  progress=progress, out=out)

@@ -19,10 +19,18 @@ planner), the whole-stream q0/q1 and q2/q3 pipelines
 per-metablock fragment parse (fragment_parse_seg), the match finder
 (find_best_matches), ParseSession (the incremental search + parse),
 and the C API's work pool (work_pool_compress) and
-max_compressed_size.
+max_compressed_size.  For the optimal parser (encode/zopfli.py): the
+candidate collectors (collect_matches, collect_dict_sorted over the
+sorted dictionary index, collect_dict over the hashed one), the literal
+cost estimate (est_lit), the candidate preparation (zopfli_cands*), the
+DPs (zopfli_dp_cands over candidates, zopfli_dp_cache and zopfli_dp
+over edge lists) and their backtrack (zopfli_backtrack).
 
 Every binding returns arrays of its own (no buffer is pooled across
-calls), so results may be kept and handed across threads.
+calls), so results may be kept and handed across threads.  The
+exceptions are explicit: rows a caller passes in (`out=`, `state_bufs=`)
+are written in place, and sorted_dict_index_native returns read-only
+views of the runtime's own constant tables.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import platform
 import shutil
 import subprocess
 import threading
+import warnings
+from functools import lru_cache
 
 import numpy as np
 
@@ -54,6 +64,8 @@ I32P = ctypes.POINTER(ctypes.c_int32)
 I64P = ctypes.POINTER(ctypes.c_int64)
 U8P = ctypes.POINTER(ctypes.c_uint8)
 U64P = ctypes.POINTER(ctypes.c_uint64)
+F32P = ctypes.POINTER(ctypes.c_float)
+F64P = ctypes.POINTER(ctypes.c_double)
 I64 = ctypes.c_int64
 
 
@@ -126,9 +138,28 @@ def get_lib():
     return _lib
 
 
+_build_error = None
+
+
 def available() -> bool:
-    """True once the runtime builds and loads; a failed build raises."""
-    return get_lib() is not None
+    """Whether the runtime builds and loads.  A failure is warned about
+    once and remembered, so the callers that have a pure-Python
+    fallback (decode.decoder.decompress, decode.batch) take it without
+    building again; every binding still raises through get_lib()."""
+    global _build_error
+    if _lib is not None:
+        return True
+    if _build_error is not None:
+        return False
+    try:
+        get_lib()
+        return True
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        _build_error = e
+        warnings.warn(f"brotli_tpu_torch: native runtime unavailable, the "
+                      f"decoders fall back to pure Python: {e!r}",
+                      RuntimeWarning)
+        return False
 
 
 def _bind(lib) -> None:
@@ -212,6 +243,68 @@ def _bind(lib) -> None:
         ctypes.c_void_p, size_t, ctypes.POINTER(ctypes.c_uint32),
         ctypes.POINTER(ctypes.c_uint32), size_t, ctypes.c_char_p,
         ctypes.POINTER(size_t), ctypes.c_char_p, size_t]
+    _bind_optimal_parser(lib)
+
+
+def _bind_optimal_parser(lib) -> None:
+    """The optimal parser's entry points (encode/zopfli.py)."""
+    lib.collect_matches_native.restype = I64
+    lib.collect_matches_native.argtypes = [
+        U8P, I64, I64, I64, I64, I64, I64, I64, I64, I64, I64P, I64P, I64P,
+        I64]
+    lib.extend_caps_range_native.restype = None
+    lib.extend_caps_range_native.argtypes = [U8P, I64, I64, I64P, I64P,
+                                             I64P, I64, I64P, I64P]
+    lib.est_lit_native.restype = None
+    lib.est_lit_native.argtypes = [U8P, I64, U8P, I64, ctypes.c_int,
+                                   ctypes.c_double, F64P]
+    # one sparse candidate source: pos, len, dist, isdict, wire, count
+    src = [I64P, I64P, I64P, U8P, I64P, I64]
+    lib.zopfli_cands_native.restype = I64
+    lib.zopfli_cands_native.argtypes = [
+        I64P, I64P, I64P, U8P, I64P, I64, I64, I64, I64, I64, I64, I64,
+        I64P, ctypes.c_void_p]
+    dense = [I64P, I64P, U8P, I64P, I64, *src, *src, I64, I64, I64, I64,
+             I64, I64, I64P, ctypes.c_void_p]
+    lib.zopfli_cands_dense_native.restype = I64
+    lib.zopfli_cands_dense_native.argtypes = dense
+    lib.zopfli_cands_dense_range_native.restype = I64
+    lib.zopfli_cands_dense_range_native.argtypes = dense + [I64, I64]
+    dp = [I64, I64, I64, I64, F64P, F64P, F64P, F64P, I64, I64P,
+          ctypes.c_void_p, I64P, I64P, I64P, I64P, U8P, I64, I64, I64,
+          I64P, F32P, I32P, I32P, I32P, I32P, I32P]
+    lib.zopfli_dp_cands_native.restype = None
+    lib.zopfli_dp_cands_native.argtypes = dp
+    lib.zopfli_dp_cands_range_native.restype = None
+    lib.zopfli_dp_cands_range_native.argtypes = dp + [I64, I64, I64P]
+    lib.zopfli_dp_cache_native.restype = None
+    lib.zopfli_dp_cache_native.argtypes = [
+        I64, F64P, F64P, F64P, I64P, I64P, I64P, I64P, I64P, F64P, F64P,
+        I64P, I64P, I64P, I64P, U8P, I64, I64, I64, I64P, F64P, I64P, I64P,
+        I64P, I64P, I64P]
+    lib.zopfli_dp_native.restype = None
+    lib.zopfli_dp_native.argtypes = [
+        I64, F64P, F64P, I64P, I64P, I64P, I64P, I64P, F64P, I64P, I64P,
+        I64P, F64P, I64P, I64P, I64P, I64P]
+    lib.zopfli_backtrack_native.restype = I64
+    lib.zopfli_backtrack_native.argtypes = [I64, F64P, F64P] + [I64P] * 8
+    lib.collect_dict_native.restype = I64
+    lib.collect_dict_native.argtypes = [
+        U8P, I64, I64, I64, U8P, I64, I64P, I64P, I64P, I32P, I64, I64,
+        I64P, I64P, I64P, I64P, I64]
+    lib.BrotliTpuEnsureHqDict.restype = None
+    lib.BrotliTpuEnsureHqDict.argtypes = []
+    lib.zopfli_hq_sorted_index.restype = I64
+    lib.zopfli_hq_sorted_index.argtypes = [
+        ctypes.POINTER(U8P), ctypes.POINTER(I64P), ctypes.POINTER(I64P),
+        ctypes.POINTER(I64P)]
+    lib.dict_sorted_init_native.restype = None
+    lib.dict_sorted_init_native.argtypes = [U8P, I64P, I64, I32P, U8P,
+                                            U64P, I32P]
+    lib.collect_dict_sorted_native.restype = I64
+    lib.collect_dict_sorted_native.argtypes = [
+        U8P, I64, I64, I64, U8P, I64P, I64P, I64P, I32P, I64, U8P, U64P,
+        I32P, I64P, I64P, I64P, I64P, I64, I64P]
 
 
 def _install_decoder_dictionary(lib) -> None:
@@ -257,15 +350,19 @@ _decode_out = None  # pooled output buffer: a fresh multi-MB array pays a
 POOL_MAX = 1 << 26  # larger outputs get a buffer of their own
 
 
-def decode(data: bytes) -> bytes:
-    """Native one-shot decode.  Raises ValueError(code) with code -1
-    (truncated) or -2 (corrupt).  The table and an output buffer of up
-    to POOL_MAX bytes are kept across calls."""
+def decode(data: bytes, custom_dictionary: bytes = b"",
+           large_window: bool = False) -> bytes:
+    """Native one-shot decode; `custom_dictionary` is the output before
+    the stream's first byte, `large_window` admits the large-window
+    header.  Raises ValueError(code) with code -1 (truncated) or -2
+    (corrupt).  The table and an output buffer of up to POOL_MAX bytes
+    are kept across calls."""
     global _table_mem, _decode_out
     lib = get_lib()
     if _table_mem is None:
         _table_mem = np.zeros(1 << 23, dtype=np.int32)
     src = np.frombuffer(bytes(data), dtype=np.uint8)
+    cd = np.frombuffer(bytes(custom_dictionary), dtype=np.uint8)
     cap = 4 * len(src) + (1 << 16)
     while True:
         if cap <= POOL_MAX:
@@ -277,7 +374,8 @@ def decode(data: bytes) -> bytes:
             out = np.empty(cap, dtype=np.uint8)
         r = lib.decode_native(
             _ptr(src, U8P), len(src), _ptr(out, U8P), cap,
-            U8P(), 0, 0, _ptr(_table_mem, I32P), len(_table_mem))
+            _ptr(cd, U8P) if len(cd) else U8P(), len(cd),
+            int(large_window), _ptr(_table_mem, I32P), len(_table_mem))
         if r == -3:  # output buffer too small
             if cap >= 1 << 40:
                 raise MemoryError("decoded output exceeds 1 TiB")
@@ -642,29 +740,57 @@ def _dict_index_args(use_dictionary):
 
 def find_best_matches(data, window_size, k=8, bucket_bits=17, k8=4,
                       bucket_bits8=18, hash_len=4, literal_byte_score=540,
-                      dict_len=0, use_dictionary=True, match_cap=320):
+                      dict_len=0, use_dictionary=True, match_cap=320,
+                      want_top2=False, miss_economy=False, out=None,
+                      progress=None):
     """Best (len, dist, score, is_dict, wire_len) per position of
     data[dict_len:]: two hashed candidate tables (4- or 5-byte and
     8-byte hashes, k and k8 slots a bucket) and, with use_dictionary,
-    the static dictionary."""
+    the static dictionary.  want_top2 also returns the runner-up (len,
+    dist) of another distance; miss_economy backs the scan depth off
+    over matchless runs (the optimal parser's collection only).
+
+    out: rows the caller owns (len, dist, score, isdict uint8, wire,
+    top-2 len, top-2 dist; each n long, the top-2 rows None without
+    want_top2), written from the native call; progress: an int64[1]
+    the native search advances to the positions it has covered, so a
+    caller on another thread may read the rows behind it."""
     lib = get_lib()
     data = np.ascontiguousarray(data, dtype=np.uint8)
     n = len(data)
-    best_len = np.zeros(n, dtype=np.int64)
-    best_dist = np.zeros(n, dtype=np.int64)
-    best_score = np.zeros(n, dtype=np.int64)
-    best_isdict = np.zeros(n, dtype=np.uint8)
-    best_wire = np.zeros(n, dtype=np.int64)
+    if out is not None:
+        (best_len, best_dist, best_score, best_isdict, best_wire,
+         b2l, b2d) = out
+        _check_rows((best_len, best_dist, best_score, best_wire, b2l, b2d),
+                    np.int64, n)
+        _check_rows((best_isdict,), np.uint8, n)
+        if want_top2 and (b2l is None or b2d is None):
+            raise ValueError("find_best_matches: want_top2 needs the "
+                             "top-2 rows")
+    else:
+        best_len = np.zeros(n, dtype=np.int64)
+        best_dist = np.zeros(n, dtype=np.int64)
+        best_score = np.zeros(n, dtype=np.int64)
+        best_isdict = np.zeros(n, dtype=np.uint8)
+        best_wire = np.zeros(n, dtype=np.int64)
+        b2l = np.zeros(n, dtype=np.int64) if want_top2 else None
+        b2d = np.zeros(n, dtype=np.int64) if want_top2 else None
     dict_args, dict_refs = _dict_index_args(use_dictionary)
     lib.find_matches_native(
         _ptr(data, U8P), n, dict_len, window_size, k, bucket_bits, k8,
         bucket_bits8, hash_len, literal_byte_score // 4, match_cap,
         *dict_args, _ptr(best_len), _ptr(best_dist), _ptr(best_score),
-        _ptr(best_isdict, U8P), _ptr(best_wire), I64P(), I64P(), 0, I64P())
+        _ptr(best_isdict, U8P), _ptr(best_wire),
+        _ptr(b2l) if want_top2 else I64P(),
+        _ptr(b2d) if want_top2 else I64P(), int(miss_economy),
+        _ptr(progress) if progress is not None else I64P())
     del dict_refs
     sl = slice(dict_len, None)
-    return (best_len[sl], best_dist[sl], best_score[sl],
+    base = (best_len[sl], best_dist[sl], best_score[sl],
             best_isdict[sl].astype(bool), best_wire[sl])
+    if want_top2:
+        return base + (b2l[sl], b2d[sl])
+    return base
 
 
 def compress_session_pipeline(data, window_size, span, quality,
@@ -745,6 +871,371 @@ class ParseSession:
 
     def __del__(self):
         self.close()
+
+
+# --- the optimal parser (encode/zopfli.py) --------------------------------
+
+
+def _check_rows(rows, dtype, n):
+    """Arrays a caller owns and native code reads or writes: each (but
+    None) must be C-contiguous and of `dtype`, a row at least n long, a
+    [rows, n] matrix exactly n wide."""
+    for a in rows:
+        if a is None:
+            continue
+        short = a.shape[1] != n if a.ndim == 2 else len(a) < n
+        if a.dtype != dtype or short or not a.flags.c_contiguous:
+            raise ValueError(f"caller-owned array: need contiguous {dtype} "
+                             f"of {n}, got {a.dtype} {a.shape}")
+
+#: a native Zopfli candidate (hotloops.cpp's ZCand, 16 bytes)
+ZCAND_DTYPE = np.dtype([("len", "<i4"), ("wire", "<i4"), ("dist", "<i4"),
+                        ("sym", "<i2"), ("nbits", "u1"), ("flags", "u1")])
+
+
+def collect_matches(data, window_size, dict_len=0, k=48, bucket_bits=17,
+                    k8=24, bucket_bits8=18, min_len=4, max_per_pos=16):
+    """Every useful match a position (the optimal parser's window
+    candidates): (pos, len, dist), pos relative to data[dict_len]."""
+    lib = get_lib()
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    n = len(data)
+    cap = max(1, n - dict_len) * max_per_pos // 2 + 1024
+    outs = [np.empty(cap, np.int64) for _ in range(3)]
+    m = lib.collect_matches_native(
+        _ptr(data, U8P), n, dict_len, window_size, k, bucket_bits, k8,
+        bucket_bits8, min_len, max_per_pos, *[_ptr(a) for a in outs], cap)
+    return tuple(a[:m] for a in outs)
+
+
+def extend_caps_range(data, dict_len, pos, dist, lens, state):
+    """extend_caps over one chunk of hits: the walk's skip state (the
+    end of the longest extension so far) is carried in state[0], so
+    chunks in order give the one-call result."""
+    lib = get_lib()
+    data = np.ascontiguousarray(data, np.uint8)
+    pos = np.ascontiguousarray(pos, np.int64)
+    dist = np.ascontiguousarray(dist, np.int64)
+    lens = np.ascontiguousarray(lens, np.int64)
+    out = np.empty(len(pos), np.int64)
+    lib.extend_caps_range_native(_ptr(data, U8P), len(data), dict_len,
+                                 _ptr(pos), _ptr(dist), _ptr(lens),
+                                 len(pos), _ptr(out), _ptr(state))
+    return out
+
+
+def est_lit(data, cls, half, utf8_ramp, bias):
+    """Per-byte literal bit cost from a sliding window of +-half bytes
+    (cls: the UTF-8 context class a byte, or None)."""
+    lib = get_lib()
+    data = np.ascontiguousarray(data, np.uint8)
+    cost = np.empty(len(data), np.float64)
+    cls = None if cls is None else np.ascontiguousarray(cls, np.uint8)
+    lib.est_lit_native(_ptr(data, U8P), len(data),
+                       U8P() if cls is None else _ptr(cls, U8P), half,
+                       1 if utf8_ramp else 0, bias, _ptr(cost, F64P))
+    return cost
+
+
+def _source(src):
+    """One sparse candidate source as contiguous arrays."""
+    s_pos, s_len, s_dist, s_isdict, s_wire = src
+    return (np.ascontiguousarray(s_pos, np.int64),
+            np.ascontiguousarray(s_len, np.int64),
+            np.ascontiguousarray(s_dist, np.int64),
+            np.ascontiguousarray(s_isdict, np.uint8),
+            np.ascontiguousarray(s_wire, np.int64))
+
+
+def _source_args(src, count):
+    s_pos, s_len, s_dist, s_isdict, s_wire = src
+    return (_ptr(s_pos), _ptr(s_len), _ptr(s_dist), _ptr(s_isdict, U8P),
+            _ptr(s_wire), count)
+
+
+def zopfli_cands(pos, lens, dists, isdict, wire, n, npostfix, ndirect,
+                 k_win=12, k_dict=4, ladder_top=4):
+    """Counting sort, dedupe and cap of concatenated candidate sources
+    into per-position candidates: (cand_off[n + 1], ZCAND_DTYPE[])."""
+    lib = get_lib()
+    src = _source((pos, lens, dists, isdict, wire))
+    m = len(src[0])
+    cand_off = np.zeros(n + 1, np.int64)
+    packed = np.empty(m, dtype=ZCAND_DTYPE)
+    cnt = lib.zopfli_cands_native(
+        *_source_args(src, m), n, npostfix, ndirect, k_win, k_dict,
+        ladder_top, _ptr(cand_off), packed.ctypes.data)
+    return cand_off, packed[:cnt]
+
+
+def zopfli_cands_dense(d_len, d_dist, d_isdict, d_wire, extra, n,
+                       npostfix, ndirect, k_win=12, k_dict=4,
+                       ladder_top=4):
+    """zopfli_cands over the dense [rows, n] candidate rows plus up to
+    two sparse sources (`extra`: None, one (pos, len, dist, isdict,
+    wire) tuple or a list of them, each sorted by position), merged
+    natively.  None where a source is not sorted (zopfli_cands takes
+    it then)."""
+    lib = get_lib()
+    d_len = np.ascontiguousarray(d_len, np.int64)
+    d_dist = np.ascontiguousarray(d_dist, np.int64)
+    d_isdict = np.ascontiguousarray(d_isdict, np.uint8)
+    d_wire = np.ascontiguousarray(d_wire, np.int64)
+    sources = [] if extra is None else (
+        extra if isinstance(extra, list) else [extra])
+    if len(sources) > 2:
+        raise ValueError("zopfli_cands_dense: at most two sparse sources")
+    srcs = [_source(x) for x in sources]
+    m = int((d_len >= 2).sum()) + sum(len(x[0]) for x in srcs)
+    e64, e8 = np.zeros(0, np.int64), np.zeros(0, np.uint8)
+    while len(srcs) < 2:
+        srcs.append((e64, e64, e64, e8, e64))
+    cand_off = np.zeros(n + 1, np.int64)
+    packed = np.empty(max(m, 1), dtype=ZCAND_DTYPE)
+    cnt = lib.zopfli_cands_dense_native(
+        _ptr(d_len), _ptr(d_dist), _ptr(d_isdict, U8P), _ptr(d_wire),
+        d_len.shape[0], *_source_args(srcs[0], len(srcs[0][0])),
+        *_source_args(srcs[1], len(srcs[1][0])), n, npostfix, ndirect,
+        k_win, k_dict, ladder_top, _ptr(cand_off), packed.ctypes.data)
+    if cnt < 0:
+        return None
+    return cand_off, packed[:cnt]
+
+
+def zopfli_cands_dense_range(d_len, d_dist, d_isdict, d_wire, x_src, xm,
+                             n, npostfix, ndirect, cand_off, packed,
+                             p_start, p_end, k_win=12, k_dict=4,
+                             ladder_top=4):
+    """zopfli_cands_dense over positions [p_start, p_end), into the
+    caller's cand_off and packed (contiguous, of the dtypes above, and
+    held across chunks); x_src is one sparse source whose first xm
+    entries are valid.  Returns the candidates so far (also written to
+    cand_off[p_end])."""
+    lib = get_lib()
+    _check_rows((d_len, d_dist, d_wire), np.int64, n)
+    _check_rows((d_isdict,), np.uint8, n)
+    _check_rows(x_src[:3] + x_src[4:], np.int64, xm)
+    _check_rows(x_src[3:4], np.uint8, xm)
+    _check_rows((cand_off,), np.int64, n + 1)
+    if packed.dtype != ZCAND_DTYPE:
+        raise ValueError("zopfli_cands_dense_range: packed is not ZCands")
+    e64, e8 = np.zeros(0, np.int64), np.zeros(0, np.uint8)
+    return int(lib.zopfli_cands_dense_range_native(
+        _ptr(d_len), _ptr(d_dist), _ptr(d_isdict, U8P), _ptr(d_wire),
+        d_len.shape[0], *_source_args(x_src, xm),
+        *_source_args((e64, e64, e64, e8, e64), 0), n, npostfix, ndirect,
+        k_win, k_dict, ladder_top, _ptr(cand_off), packed.ctypes.data,
+        p_start, p_end))
+
+
+def zopfli_dp_cands(n, lcp, cost_cmd, cost_dist_short, cost_dist4, cands,
+                    ins_code, ins_extra, cmd_sym, cmd_sym_last, data,
+                    dict_len, window_size, initial_cache, n_starts=2,
+                    cand_cap=0, max_zopfli_len=0, p_range=None,
+                    qstate=None, state_bufs=None):
+    """The distance-cache-aware shortest-path DP over prepared
+    candidates (zopfli_cands*), with the sub-length ladder inline.
+    Returns (cost f32, prev_start, prev_len, prev_wire, prev_dist), each
+    n + 1 long.  Chunked: p_range = (p_start, p_end) runs those
+    positions, with the start queue in the caller's qstate (int64[18])
+    and the DP state in the caller's state_bufs (cost f32[n + 1], four
+    int32[n + 1], node cache int32[4 (n + 1)]), both held across
+    chunks."""
+    lib = get_lib()
+    cand_off, packed = cands
+    lcp = np.ascontiguousarray(lcp, np.float64)
+    cost_cmd = np.ascontiguousarray(cost_cmd, np.float64)
+    cds = np.ascontiguousarray(cost_dist_short, np.float64)
+    cd4 = np.ascontiguousarray(cost_dist4, np.float64)
+    tabs = [np.ascontiguousarray(t, np.int64)
+            for t in (ins_code, ins_extra, cmd_sym, cmd_sym_last)]
+    data = np.ascontiguousarray(data, np.uint8)
+    cache0 = np.ascontiguousarray(initial_cache, np.int64)
+    if state_bufs is None:
+        state_bufs = (np.empty(n + 1, np.float32),
+                      *[np.empty(n + 1, np.int32) for _ in range(4)],
+                      np.empty(4 * (n + 1), np.int32))
+    cost, prev_start, prev_len, prev_wire, prev_dist, node_cache = \
+        state_bufs
+    _check_rows((cost,), np.float32, n + 1)
+    _check_rows((prev_start, prev_len, prev_wire, prev_dist), np.int32,
+                n + 1)
+    _check_rows((node_cache,), np.int32, 4 * (n + 1))
+    if p_range is not None:
+        _check_rows((qstate,), np.int64, 18)
+    args = [n, n_starts, cand_cap, max_zopfli_len, _ptr(lcp, F64P),
+            _ptr(cost_cmd, F64P), _ptr(cds, F64P), _ptr(cd4, F64P),
+            cd4.shape[1], _ptr(cand_off), packed.ctypes.data,
+            *[_ptr(t) for t in tabs], _ptr(data, U8P), len(data), dict_len,
+            window_size, _ptr(cache0), _ptr(cost, F32P),
+            *[_ptr(a, I32P) for a in (prev_start, prev_len, prev_wire,
+                                      prev_dist, node_cache)]]
+    if p_range is None:
+        lib.zopfli_dp_cands_native(*args)
+    else:
+        lib.zopfli_dp_cands_range_native(*args, p_range[0], p_range[1],
+                                         _ptr(qstate))
+    return cost, prev_start, prev_len, prev_wire, prev_dist
+
+
+def zopfli_backtrack(n, lcp, cost, prev_start, prev_len, prev_wire,
+                     prev_dist):
+    """The cheapest close of a DP (a final insert run where it pays) and
+    the walk back along its predecessors: (ins, wire, dist, advance)."""
+    lib = get_lib()
+    lcp = np.ascontiguousarray(lcp, np.float64)
+    cost = np.ascontiguousarray(cost, np.float64)
+    prev = [np.ascontiguousarray(a, np.int64)
+            for a in (prev_start, prev_len, prev_wire, prev_dist)]
+    outs = [np.empty(n + 2, np.int64) for _ in range(4)]
+    cnt = lib.zopfli_backtrack_native(
+        n, _ptr(lcp, F64P), _ptr(cost, F64P), *[_ptr(a) for a in prev],
+        *[_ptr(a) for a in outs])
+    return tuple(a[:cnt] for a in outs)
+
+
+def zopfli_dp_cache(n, lcp, cost_cmd, cost_dist_short, edge_off, e_len,
+                    e_wire, e_dist, e_ccode, e_base, e_dcost, ins_code_tab,
+                    ins_extra_tab, cmd_sym_tab, cmd_sym_last_tab, data,
+                    dict_len, window_size, initial_cache):
+    """The cache-aware DP over a priced edge list (short-code edge costs
+    and cache-continuation edges); returns (cost, prev_start, prev_len,
+    prev_wire, prev_dist)."""
+    lib = get_lib()
+    f64 = [np.ascontiguousarray(a, np.float64)
+           for a in (lcp, cost_cmd, cost_dist_short)]
+    edges = [np.ascontiguousarray(a, np.int64)
+             for a in (edge_off, e_len, e_wire, e_dist, e_ccode)]
+    prices = [np.ascontiguousarray(a, np.float64) for a in (e_base,
+                                                            e_dcost)]
+    tabs = [np.ascontiguousarray(a, np.int64) for a in (
+        ins_code_tab, ins_extra_tab, cmd_sym_tab, cmd_sym_last_tab)]
+    data = np.ascontiguousarray(data, np.uint8)
+    cache = np.ascontiguousarray(initial_cache, np.int64)
+    cost = np.empty(n + 1, np.float64)
+    prev = [np.empty(n + 1, np.int64) for _ in range(4)]
+    node_cache = np.empty(4 * (n + 1), np.int64)
+    lib.zopfli_dp_cache_native(
+        n, *[_ptr(a, F64P) for a in f64], *[_ptr(a) for a in edges],
+        *[_ptr(a, F64P) for a in prices], *[_ptr(a) for a in tabs],
+        _ptr(data, U8P), len(data), dict_len, window_size, _ptr(cache),
+        _ptr(cost, F64P), *[_ptr(a) for a in prev], _ptr(node_cache))
+    return (cost, *prev)
+
+
+def zopfli_dp(n, lcp, cost_cmd, edge_off, e_len, e_wire, e_dist, e_ccode,
+              e_base, ins_code_tab, ins_extra_tab, cmd_sym_tab):
+    """The DP over a priced edge list without the distance cache;
+    returns (cost, prev_start, prev_len, prev_wire, prev_dist)."""
+    lib = get_lib()
+    lcp = np.ascontiguousarray(lcp, np.float64)
+    cost_cmd = np.ascontiguousarray(cost_cmd, np.float64)
+    edges = [np.ascontiguousarray(a, np.int64)
+             for a in (edge_off, e_len, e_wire, e_dist, e_ccode)]
+    e_base = np.ascontiguousarray(e_base, np.float64)
+    tabs = [np.ascontiguousarray(a, np.int64)
+            for a in (ins_code_tab, ins_extra_tab, cmd_sym_tab)]
+    cost = np.empty(n + 1, np.float64)
+    prev = [np.empty(n + 1, np.int64) for _ in range(4)]
+    lib.zopfli_dp_native(
+        n, _ptr(lcp, F64P), _ptr(cost_cmd, F64P), *[_ptr(a) for a in edges],
+        _ptr(e_base, F64P), *[_ptr(a) for a in tabs], _ptr(cost, F64P),
+        *[_ptr(a) for a in prev])
+    return (cost, *prev)
+
+
+def collect_dict(data, dict_len, window_size, entry_bytes, e_out, e_wire,
+                 e_wid, table, hash_bits):
+    """Transform-aware dictionary matches through the hashed expanded
+    index (static_dict.expanded_dict_index): (pos, out_len,
+    pseudo_dist, wire), pos relative to data[dict_len]."""
+    lib = get_lib()
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    n = len(data)
+    entry_bytes = np.ascontiguousarray(entry_bytes, np.uint8)
+    index = [np.ascontiguousarray(a, np.int64) for a in (e_out, e_wire,
+                                                         e_wid)]
+    table = np.ascontiguousarray(table, np.int32)
+    cap = max(16, (n - dict_len) * 6)
+    outs = [np.empty(cap, np.int64) for _ in range(4)]
+    m = lib.collect_dict_native(
+        _ptr(data, U8P), n, dict_len, window_size, _ptr(entry_bytes, U8P),
+        entry_bytes.shape[1], *[_ptr(a) for a in index], _ptr(table, I32P),
+        hash_bits, table.shape[1], *[_ptr(a) for a in outs], cap)
+    return tuple(a[:m] for a in outs)
+
+
+def sorted_dict_index_native():
+    """Every unique transformed dictionary output, sorted, as the
+    runtime builds it: (sorted_bytes[m, 38], out_len, wire, wid),
+    read-only views of tables the runtime holds for the life of the
+    process and never rewrites."""
+    lib = get_lib()
+    lib.BrotliTpuEnsureHqDict()
+    sb_p, len_p, wire_p, wid_p = U8P(), I64P(), I64P(), I64P()
+    m = lib.zopfli_hq_sorted_index(
+        ctypes.byref(sb_p), ctypes.byref(len_p), ctypes.byref(wire_p),
+        ctypes.byref(wid_p))
+    if m <= 0:
+        raise RuntimeError("zopfli_hq_sorted_index: no index")
+    views = (np.ctypeslib.as_array(sb_p, shape=(m, 38)),
+             np.ctypeslib.as_array(len_p, shape=(m,)),
+             np.ctypeslib.as_array(wire_p, shape=(m,)),
+             np.ctypeslib.as_array(wid_p, shape=(m,)))
+    for v in views:
+        v.flags.writeable = False
+    return views
+
+
+@lru_cache(maxsize=1)
+def _dict_sorted_state():
+    """The sorted index's search tables (longest-prefix links, a bloom
+    filter, 8-byte keys, 16-bit ranges), built once."""
+    from .encode.static_dict import sorted_dict_index
+    lib = get_lib()
+    sb, s_len, _, _ = sorted_dict_index()
+    m = len(s_len)
+    lpf = np.empty(m, dtype=np.int32)
+    bloom = np.empty(1 << 21, dtype=np.uint8)
+    key8 = np.empty(m, dtype=np.uint64)
+    range16 = np.empty(65537, dtype=np.int32)
+    lib.dict_sorted_init_native(
+        _ptr(sb, U8P), _ptr(s_len), m, _ptr(lpf, I32P), _ptr(bloom, U8P),
+        _ptr(key8, U64P), _ptr(range16, I32P))
+    return lpf, bloom, key8, range16
+
+
+def collect_dict_sorted(data, dict_len, window_size, progress=None,
+                        out=None):
+    """Every transform-aware dictionary match, exactly, by a predecessor
+    search over the sorted index: (pos, out_len, pseudo_dist, wire), pos
+    relative to data[dict_len].  out: four int64 rows the caller owns
+    (None is returned where they overflow); progress: int64[2], the
+    region position covered and the entries emitted so far, advanced
+    by the native search for a reader on another thread."""
+    from .encode.static_dict import sorted_dict_index
+    lib = get_lib()
+    sb, s_len, s_wire, s_wid = sorted_dict_index()
+    lpf, bloom, key8, range16 = _dict_sorted_state()
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    n = len(data)
+    cap = max(64, (n - dict_len) * 6)
+    if out is not None:
+        _check_rows(out, np.int64, len(out[0]))
+    while True:
+        rows = out if out is not None else [np.empty(cap, np.int64)
+                                            for _ in range(4)]
+        cnt = lib.collect_dict_sorted_native(
+            _ptr(data, U8P), n, dict_len, window_size, _ptr(sb, U8P),
+            _ptr(s_len), _ptr(s_wire), _ptr(s_wid), _ptr(lpf, I32P),
+            len(s_len), _ptr(bloom, U8P), _ptr(key8, U64P),
+            _ptr(range16, I32P), *[_ptr(a) for a in rows], len(rows[0]),
+            _ptr(progress) if progress is not None else I64P())
+        if cnt >= 0:
+            return tuple(a[:cnt] for a in rows)
+        if out is not None:
+            return None
+        cap *= 2
 
 
 def max_compressed_size(input_size: int) -> int:

@@ -13,9 +13,8 @@ the spawn start method: workers start from a fresh import and never
 touch torch or CUDA) and "workpool" (the C API's persistent pthread
 pool, BrotliEncoderCompressWorkPool).  favor_cpu_efficiency builds one
 match table over the whole input that every part parses against.  All
-of them run on the host through the port's native runtime.  Quality
->= 10 raises NotImplementedError, as compress() does, on every backend
-but workpool, whose native pool runs every quality.  compress_mesh
+of them run on the host through the port's native runtime, at every
+quality (10 and above through the optimal parser).  compress_mesh
 merges its shards' streams with `_merge`.
 """
 

@@ -104,6 +104,21 @@ noise, slowly varying integers, random bytes), then:
                 plain version in all seven outputs and the step counts
                 on all 1024 of the serving batch's lanes, with the
                 arrays, step cap and buffer sizes the path gives it
+  optimal parser the host encoder's optimal parser and the host
+                decoders (no kernel; the card machine's CPU): compress
+                at q11 and q10 on the corpus's first 8 MiB; q9_5 at
+                quality 10 on one 1 MiB slice (a single metablock: the
+                overlapped tier, which must produce the stream);
+                compress_multi with 8 parts at q11 on the 8 MiB on the
+                thread, serial (must equal thread) and workpool
+                backends; compress_batch at q11 on 64 slices of 64 KiB;
+                MB/s (one call on the host clock) and ratio for each
+                under the card line; every output decodes back through
+                libbrotlidec and through the port's decompress; the
+                port's pure-Python Decoder decodes a 256 KiB q11 stream
+                made with a custom dictionary and one made with a
+                large window (lgwin 26), with its MB/s; prints the
+                phase's wall
   cpu check     each path on the card equals the same path with
                 device="cpu" byte for byte on a 1 MiB prefix
                 (compress_mesh at q5 and q9 over 8 shards), and
@@ -192,6 +207,8 @@ SEED = 20261016
 MESH_SHARDS = 8             # compress_mesh: 8 shards of 4 MiB
 HOST_Q9_MIB = 8             # the host encoder's q9 on the corpus's head
 HOST_BATCH = 256            # compress_batch: slices of 64 KiB
+HOST_ZOPFLI_MIB = 8         # the optimal parser on the corpus's head
+ZOPFLI_BATCH = 64           # compress_batch at q11: slices of 64 KiB
 MESH_ROW = 8 << 20          # a shard row: a 4 MiB halo and 4 MiB shard
 # compress_mesh's folds by quality (fold_cuda.config_name)
 MESH_FOLDS = {5: ["fold_k1p3_f32b0"],
@@ -766,6 +783,100 @@ def host_encoder_phase(corpus, card):
                              "from compress")
     _round_trip(name, decode, got, small, "host compress_mesh small")
     log(f"host round trips: ok through {name}")
+
+
+def optimal_parser_phase(corpus, card):
+    """The optimal parser (quality 10 and above) and the host decoders on
+    this machine's CPU: compress at q11 and q10 on the corpus's first
+    HOST_ZOPFLI_MIB MiB; q9_5 at quality 10 on a 1 MiB slice, whose
+    single metablock runs the overlapped tier; compress_multi with 8
+    parts at q11 on the thread, serial (equal to thread) and workpool
+    backends; compress_batch at q11 on ZOPFLI_BATCH slices of 64 KiB.
+    Every output decodes back through libbrotlidec and through the
+    port's decompress; the pure-Python Decoder decodes a 256 KiB q11
+    stream with a custom dictionary and one with a large window.
+    Prints MB/s (host wall clock, one call) and ratio for each under the
+    card line."""
+    from brotli_tpu_torch import (Decoder, compress, compress_batch,
+                                  compress_multi, decompress)
+    from brotli_tpu_torch.encode import zopfli
+    name, decode = _decoder()
+    log(f"optimal parser phase on {card}")
+
+    def run(what, data, call):
+        t0 = time.perf_counter()
+        out = call()
+        dt = time.perf_counter() - t0
+        n_out = sum(map(len, out)) if isinstance(out, list) else len(out)
+        log(f"zopfli {what}: {len(data) / dt / 1e6:.2f} MB/s, ratio "
+            f"{len(data) / n_out:.4f} ({len(data)} -> {n_out} bytes, "
+            f"{dt:.3f} s)")
+        return out
+
+    def round_trip(out, data, what):
+        _round_trip(name, decode, out, data, f"zopfli {what}")
+        if decompress(out) != data:
+            raise AssertionError(f"zopfli {what}: the port's decompress "
+                                 "differs")
+
+    head = corpus[:HOST_ZOPFLI_MIB << 20]
+    for q in (11, 10):
+        out = run(f"compress q{q} ({HOST_ZOPFLI_MIB} MiB)", head,
+                  lambda q=q: compress(head, quality=q, lgwin=22))
+        round_trip(out, head, f"compress q{q}")
+    piece = corpus[1 << 20:2 << 20]
+    produced = []
+    real = zopfli._zopfli_segment_fast_overlapped
+
+    def overlapped(*args):
+        produced.append(real(*args))
+        return produced[-1]
+
+    zopfli._zopfli_segment_fast_overlapped = overlapped
+    try:
+        out = run("compress q10 q9_5 (1 MiB)", piece,
+                  lambda: compress(piece, quality=10, q9_5=True, lgwin=22))
+    finally:
+        zopfli._zopfli_segment_fast_overlapped = real
+    if len(produced) != 1 or produced[0] is None:
+        raise AssertionError("q9_5 on 1 MiB: the overlapped tier did not "
+                             "produce the stream")
+    round_trip(out, piece, "compress q10 q9_5")
+    outs = {}
+    for backend in ("thread", "serial", "workpool"):
+        outs[backend] = run(
+            f"compress_multi q11 8 parts {backend}", head,
+            lambda b=backend: compress_multi(head, 8, quality=11, lgwin=22,
+                                             backend=b))
+        round_trip(outs[backend], head, f"compress_multi q11 {backend}")
+    if outs["serial"] != outs["thread"]:
+        raise AssertionError("compress_multi q11: serial and thread "
+                             "backends differ")
+    stride = (len(corpus) - (64 << 10)) // (ZOPFLI_BATCH - 1)
+    slices = [corpus[k * stride:k * stride + (64 << 10)]
+              for k in range(ZOPFLI_BATCH)]
+    outs = run(f"compress_batch q11 {ZOPFLI_BATCH} x 64 KiB",
+               b"".join(slices),
+               lambda: compress_batch(slices, quality=11, lgwin=22))
+    for k, (out, data) in enumerate(zip(outs, slices)):
+        round_trip(out, data, f"compress_batch {k}")
+    log(f"zopfli round trips: ok through {name} and decompress")
+    data = corpus[2 << 20:(2 << 20) + (256 << 10)]
+    dictionary = corpus[:1 << 20]
+    for what, enc, dec in (
+            ("custom dictionary", dict(custom_dictionary=dictionary),
+             Decoder(custom_dictionary=dictionary)),
+            ("large window", dict(large_window=True, lgwin=26),
+             Decoder(large_window=True))):
+        stream = compress(data, quality=11, **enc)
+        t0 = time.perf_counter()
+        got = dec.decompress(stream)
+        dt = time.perf_counter() - t0
+        if got != data or decompress(stream, **{
+                k: v for k, v in enc.items() if k != "lgwin"}) != data:
+            raise AssertionError(f"Decoder, {what}: round trip differs")
+        log(f"Decoder q11 {what} (256 KiB): {len(data) / dt / 1e6:.3f} "
+            f"MB/s ({dt:.3f} s)")
 
 
 def cpu_check(corpus, dev):
@@ -1406,6 +1517,9 @@ def main() -> int:
     ds_serving, ds_launches = decode_path_phase(corpus, dev, enc,
                                                 step_insns)
     log(f"decode path phase wall: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    optimal_parser_phase(corpus, card)
+    log(f"optimal parser phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cpu_check(corpus, dev)
     decode_cpu_check(corpus, dev, enc)

@@ -16,8 +16,10 @@ input, 1-3 bytes and slices of the RFC dictionary, at q0-q9 under each
 stream flag; then the metablock callback's IR, inputs of 2 MiB and more
 (the dual-session parse), multi-metablock inputs at q1 and q3 with and
 without the whole-stream native pipelines, the native store's refusals,
-and the optimal-parser tiers, which raise.  tests/test_torch_multi.py
-takes its inputs and decoding from here.
+and the optimal-parser tiers on two small inputs
+(tests/test_torch_zopfli.py has the rest).  tests/test_torch_multi.py
+and tests/test_torch_zopfli.py take their inputs and decoding from
+here.
 """
 
 import ctypes
@@ -361,9 +363,13 @@ def test_store_refusal_stores_the_block_uncompressed(monkeypatch):
                                 dict(quality=12), dict(quality=9, q9_5=True),
                                 dict(quality=10, q10_deep=True)])
 def test_optimal_parser_tiers_raise(kw):
+    """The optimal parser's tiers (the default quality 11 among them),
+    which raised before the parser was ported: the port's stream now
+    equals the JAX package's.  tests/test_torch_zopfli.py holds them
+    on more inputs and flags."""
+    flags = {k: v for k, v in kw.items() if k != "quality"}
     for data in (b"", b"hello brotli " * 100):
-        with pytest.raises(NotImplementedError, match="encode/zopfli.py"):
-            compress(data, **kw)
+        _check(data, kw.get("quality", 11), flags)
 
 
 def test_append_packed_phased_matches_jax():

@@ -3,10 +3,11 @@ on the CPU.
 
 compress_multi at 1, 2, 3, 8 and 16 parts on the serial and thread
 backends with favor_cpu_efficiency off and on, the process and workpool
-backends, inputs under num_parts * 4096 bytes, and the first error of
-a failing part raised after every part joined; compress_batch over
-independent payloads.  Every case asserts equal bytes (tolerance: none)
-and decodes the port's stream through the system libbrotlidec.
+backends, inputs under num_parts * 4096 bytes, quality 11 on the serial
+and thread backends, and the first error of a failing part raised after
+every part joined; compress_batch over independent payloads.  Every
+case asserts equal bytes (tolerance: none) and decodes the port's
+stream through the system libbrotlidec.
 """
 
 import subprocess
@@ -113,9 +114,12 @@ def test_first_error_raised_after_all_parts_join(backend, monkeypatch):
 
 
 def test_optimal_parser_tiers_raise():
-    for backend in ("serial", "thread"):
-        with pytest.raises(NotImplementedError, match="encode/zopfli.py"):
-            compress_multi(DATA, 3, quality=11, backend=backend)
+    """Quality 11, which raised before the optimal parser was ported:
+    both backends now equal the JAX package's stream and each other."""
+    data = DATA[:60_000]
+    a, b = (_check(data, 3, quality=11, backend=backend)
+            for backend in ("serial", "thread"))
+    assert a == b
 
 
 def test_host_encoder_imports_no_torch():

@@ -30,7 +30,8 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
         "brotli_tpu_torch.parallel.mesh, brotli_tpu_torch.entry, "
         "brotli_tpu_torch.utils.profiling, "
         "brotli_tpu_torch.encode.encoder, brotli_tpu_torch.encode.batch, "
-        "brotli_tpu_torch.parallel.multi, brotli_tpu_torch.utils.ir\n"
+        "brotli_tpu_torch.parallel.multi, brotli_tpu_torch.utils.ir, "
+        "brotli_tpu_torch.encode.zopfli, brotli_tpu_torch.decode.batch\n"
         "from brotli_tpu_torch import *\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'brotli_tpu' or "
@@ -41,6 +42,31 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
                        text=True, cwd=ROOT, env=env, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == ""
+
+
+# brotli_tpu's exports the port has yet to port (StreamDecoder, the
+# streaming Compressor and the io wrappers), and the port's own names:
+# the device entry points, among them the counterpart of
+# decompress_batch_tpu, decompress_batch_gpu
+STILL_TO_PORT = {"StreamDecoder", "Compressor", "CompressorReader",
+                 "CompressorWriter", "Decompressor", "DecompressorWriter",
+                 "decompress_batch_tpu"}
+PORT_ONLY = {"compress_fast", "compress_gpu", "compress_mesh",
+             "decompress_batch_gpu", "make_mesh", "resolve_device"}
+
+
+def test_exports_match_jax():
+    """The port's __all__ is brotli_tpu's but for the names still to
+    port, plus its device entry points; each name resolves."""
+    import brotli_tpu
+    import brotli_tpu_torch
+    port = set(brotli_tpu_torch.__all__)
+    assert port - PORT_ONLY == set(brotli_tpu.__all__) - STILL_TO_PORT
+    assert PORT_ONLY <= port
+    assert not STILL_TO_PORT & port
+    for name in port:
+        assert getattr(brotli_tpu_torch, name) is not None
+    assert brotli_tpu_torch.__version__ == brotli_tpu.__version__
 
 
 def _python_files():

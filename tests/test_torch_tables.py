@@ -1,9 +1,10 @@
 """The port's copied tables and host helpers against brotli_tpu's.
 
 brotli_tpu_torch keeps its own copies of the fixed state the compress
-path reads: the dictionary, transforms and context LUTs, the static
-dictionary index, the split parameters, the per-tier knobs and the
-encoder-parameter rules.  Each must equal the JAX package's.
+path and the host decoders read: the dictionary, transforms and
+context LUTs, the static dictionary index, the split parameters, the
+per-tier knobs, the encoder-parameter rules, the format's code tables
+and the Huffman cost helpers.  Each must equal the JAX package's.
 """
 
 import dataclasses
@@ -69,6 +70,52 @@ def test_constants_equal():
     assert TMat.MIN_SCORE_DELTA == JMat.MIN_SCORE_DELTA
 
 
+def test_decoder_and_parser_constants_equal():
+    """What the host Decoder and the optimal parser read: block length
+    codes, command symbols, distance symbols and contexts."""
+    for name in ("NUM_BLOCK_LEN_SYMBOLS", "MIN_WINDOW_BITS"):
+        assert getattr(TC, name) == getattr(JC, name), name
+    np.testing.assert_array_equal(TC.BLOCK_LEN_BASE, JC.BLOCK_LEN_BASE)
+    np.testing.assert_array_equal(TC.BLOCK_LEN_EXTRA, JC.BLOCK_LEN_EXTRA)
+    ins, cp, last = np.meshgrid(np.arange(24), np.arange(24), [0, 1])
+    np.testing.assert_array_equal(
+        TC.combine_length_codes(ins, cp, last.astype(bool)),
+        JC.combine_length_codes(ins, cp, last.astype(bool)))
+    cl = np.arange(0, 40)
+    np.testing.assert_array_equal(TC.distance_context_from_copy_len(cl),
+                                  JC.distance_context_from_copy_len(cl))
+    dist = np.concatenate([np.arange(1, 5000), np.random.default_rng(
+        10).integers(1, 1 << 30, 5000)])
+    for npostfix in range(4):
+        for ndirect in (0, 4 << npostfix, 15 << npostfix):
+            far = dist[dist > ndirect]
+            got = TC.encode_distance(far, npostfix, ndirect)
+            for a, b in zip(got, JC.encode_distance(far, npostfix,
+                                                    ndirect)):
+                np.testing.assert_array_equal(a, b)
+            sym, extra, _ = got
+            np.testing.assert_array_equal(
+                TC.num_distance_extra_bits(sym, npostfix, ndirect),
+                JC.num_distance_extra_bits(sym, npostfix, ndirect))
+            np.testing.assert_array_equal(
+                TC.decode_distance(sym, npostfix, ndirect, extra), far)
+
+
+def test_huffman_stream_cost_helpers_equal():
+    import brotli_tpu.core.huffman as JHuf
+    rng = np.random.default_rng(11)
+    for size in (16, 40, 64, 200, 704):
+        for zeros in (0.0, 0.3, 0.8):
+            h = rng.integers(1, 500, size) * (rng.random(size) >= zeros)
+            got = THuf.optimize_counts_for_rle(h)
+            np.testing.assert_array_equal(got,
+                                          JHuf.optimize_counts_for_rle(h))
+            if h.sum():
+                lengths = THuf.build_huffman_lengths(got)
+                assert THuf.code_bit_cost(h, lengths) == \
+                    JHuf.code_bit_cost(h, lengths)
+
+
 def test_dictionary_equal():
     a, b = tget_dict(), jget_dict()
     assert a.data == b.data
@@ -80,6 +127,18 @@ def test_dictionary_equal():
     assert a.t_type == b.t_type
     for length in range(0, 30):
         assert a.num_words(length) == b.num_words(length)
+    rng = np.random.default_rng(12)
+    for length in range(4, 25):
+        for word_id in rng.integers(0, 121 << 10, 40).tolist():
+            try:
+                want = b.resolve(length, word_id)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    a.resolve(length, word_id)
+                continue
+            assert a.resolve(length, word_id) == want
+    with pytest.raises(ValueError):
+        a.resolve(3, 0)
 
 
 def test_static_dict_index_equal():
