@@ -31,6 +31,21 @@ Host entry points (the native runtime, no tensor, no torch import):
       independent payloads through compress(), side by side
   EncoderParams, BroCatli, BroCatliResult, concatenate(streams)
 
+Streaming (host, byte-identical to brotli_tpu's):
+
+  Compressor(quality=9, lgwin=22, mode=0, chunk_size=None, lgblock=0,
+             custom_dictionary=b"", catable=False, appendable=False,
+             byte_align=False, magic_number=False, stream_offset=0)
+      .process(data) / .flush() / .emit_metadata(payload) / .finish()
+      -> bytes each; one metablock a chunk
+  StreamDecoder(custom_dictionary=b"", large_window=False)
+      .decompress(chunk, max_output=None) / .finish() -> bytes each;
+      resumes at any input byte, keeps only the window
+  CompressorReader / CompressorWriter / Decompressor /
+  DecompressorWriter   file-object wrappers around the two
+  brotli_tpu_torch.ffi   the C API's shape (BrotliEncoder* and
+      BrotliDecoder* functions, states and constants)
+
 Device entry points (imported at first use; they import torch):
 
   compress_gpu(data, quality=9, lgwin=22, mode=0, span=None,
@@ -60,9 +75,13 @@ import importlib
 from .concat.brocatli import BroCatli, BroCatliResult, concatenate
 from .decode.batch import decompress_batch
 from .decode.decoder import BrotliDecodeError, Decoder, decompress
+from .decode.stream import StreamDecoder
 from .encode.batch import compress_batch
 from .encode.encoder import compress
 from .encode.params import EncoderParams
+from .encode.streaming import Compressor
+from .io_wrappers import (CompressorReader, CompressorWriter, Decompressor,
+                          DecompressorWriter)
 from .parallel.multi import compress_multi
 
 __version__ = "0.1.0"
@@ -90,8 +109,10 @@ def __getattr__(name):
     return value
 
 
-__all__ = ["BroCatli", "BroCatliResult", "BrotliDecodeError", "Decoder",
-           "EncoderParams", "__version__", "compress", "compress_batch",
+__all__ = ["BroCatli", "BroCatliResult", "BrotliDecodeError", "Compressor",
+           "CompressorReader", "CompressorWriter", "Decoder",
+           "Decompressor", "DecompressorWriter", "EncoderParams",
+           "StreamDecoder", "__version__", "compress", "compress_batch",
            "compress_fast", "compress_gpu", "compress_mesh",
            "compress_multi", "concatenate", "decompress",
            "decompress_batch", "decompress_batch_gpu", "make_mesh",

@@ -1,11 +1,13 @@
 """LSB-first bit reader and writer for the RFC 7932 stream (host side).
 
-A trimmed copy of brotli_tpu/core/bitio.py.  BitReader: what the batch
-decoder's header walk reads (bits, peeks, byte alignment, whole bytes,
-the bit position).  BitWriter: headers, whole-byte stores, the append
-of natively packed metablocks (at any bit position, or assembled at
-the writer's own bit phase), and the checkpoint that rolls a metablock
-back for the uncompressed fallback.
+A copy of brotli_tpu/core/bitio.py.  BitReader: bits, peeks, byte
+alignment and whole bytes at absolute bit positions, and for the
+streaming decoder the appended input (extend, which drops consumed
+bytes beyond a rollback slack), checkpoints and the counts of bits
+consumed and available.  BitWriter: headers, whole-byte stores, the
+append of natively packed metablocks (at any bit position, or
+assembled at the writer's own bit phase), and the checkpoint that
+rolls a metablock back for the uncompressed fallback.
 """
 
 from __future__ import annotations
@@ -18,15 +20,48 @@ class NeedsMoreInput(Exception):
 
 
 class BitReader:
-    """LSB-first bit reader over a byte buffer; `bit_pos` is the
-    absolute position of the next bit."""
+    """LSB-first bit reader over a byte buffer.
 
-    __slots__ = ("data", "bit_pos", "bit_len")
+    Positions are absolute: `bit_pos` is the position of the next bit
+    in the whole stream, and `base` counts the bits of consumed input
+    that extend() has dropped from memory (the streaming decoder keeps
+    a slack of recent history for its command-granular rollback, so
+    the buffer stays bounded)."""
+
+    __slots__ = ("data", "bit_pos", "bit_len", "base")
+
+    # consumed history kept for rollback (a command or metablock header
+    # never spans more than ~42 KB of input)
+    _SLACK_BYTES = 256 << 10
 
     def __init__(self, data):
         self.data = np.frombuffer(bytes(data), dtype=np.uint8)
         self.bit_pos = 0
         self.bit_len = len(self.data) * 8
+        self.base = 0
+
+    def extend(self, more: bytes):
+        """Append more input (streaming decode); drops the consumed
+        bytes beyond the rollback slack."""
+        drop_bytes = ((self.bit_pos - self.base) >> 3) - self._SLACK_BYTES
+        if drop_bytes > 0:
+            self.data = self.data[drop_bytes:]
+            self.base += drop_bytes * 8
+        self.data = np.concatenate(
+            [self.data, np.frombuffer(bytes(more), dtype=np.uint8)])
+        self.bit_len = self.base + len(self.data) * 8
+
+    def checkpoint(self) -> int:
+        return self.bit_pos
+
+    def restore(self, pos: int):
+        self.bit_pos = pos
+
+    def bits_consumed(self) -> int:
+        return self.bit_pos
+
+    def bytes_consumed(self) -> int:
+        return (self.bit_pos + 7) >> 3
 
     def read(self, nbits: int) -> int:
         """Read nbits (<= 57) LSB-first."""
@@ -36,7 +71,7 @@ class BitReader:
             raise NeedsMoreInput()
         if nbits == 0:
             return 0
-        chunk = self.data[pos >> 3:(end + 7) >> 3]
+        chunk = self.data[(pos - self.base) >> 3:(end - self.base + 7) >> 3]
         val = 0
         for i, b in enumerate(chunk.tolist()):
             val |= b << (8 * i)
@@ -47,11 +82,18 @@ class BitReader:
     def peek(self, nbits: int) -> int:
         """Peek up to nbits; missing tail bits are zero-filled."""
         pos = self.bit_pos
-        byte1 = min((pos + nbits + 7) >> 3, len(self.data))
+        byte0 = (pos - self.base) >> 3
+        byte1 = min((pos - self.base + nbits + 7) >> 3, len(self.data))
         val = 0
-        for i, b in enumerate(self.data[pos >> 3:byte1].tolist()):
+        for i, b in enumerate(self.data[byte0:byte1].tolist()):
             val |= b << (8 * i)
         return (val >> (pos & 7)) & ((1 << nbits) - 1)
+
+    def available(self) -> int:
+        return self.bit_len - self.bit_pos
+
+    def bytes_available(self) -> int:
+        return (self.bit_len - self.bit_pos) >> 3
 
     def skip(self, nbits: int):
         if self.bit_pos + nbits > self.bit_len:
@@ -70,7 +112,7 @@ class BitReader:
             raise ValueError("read_bytes: reader is not byte-aligned")
         if self.bit_pos + 8 * n > self.bit_len:
             raise NeedsMoreInput()
-        byte0 = self.bit_pos >> 3
+        byte0 = (self.bit_pos - self.base) >> 3
         out = self.data[byte0:byte0 + n].tobytes()
         self.bit_pos += 8 * n
         return out

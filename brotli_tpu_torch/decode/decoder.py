@@ -9,8 +9,9 @@ the static and custom dictionaries.  The batch decoder's header walk
 (batch_gpu.py) reads the count codes, window bits and context maps from
 here.  `decompress` decodes with the native runtime; the Decoder class
 is pure Python, the JAX package's fallback where its runtime does not
-build, and decodes the same streams with the same errors.  The
-resumable form of its command loop (StreamDecoder's) is not ported.
+build, and decodes the same streams with the same errors.  The command
+loop also runs resumably, one command at a time with a rollback point
+before each, for the streaming decoder (stream.py).
 """
 
 from __future__ import annotations
@@ -257,8 +258,15 @@ class Decoder:
                            dict_bytes, static_dict)
 
     def _run_commands(self, reader, out, st, window_size, dist_cache,
-                      dict_bytes, static_dict):
-        """Decode the commands of one metablock into `out`."""
+                      dict_bytes, static_dict, resumable=False,
+                      out_limit=None):
+        """Decode the commands of one metablock into `out`.  With
+        resumable=True the loop checkpoints before every command: where
+        the input runs out it rolls back at most that command (into st)
+        and raises NeedsMoreInput; with out_limit set it suspends with
+        NeedsMoreOutput once the total output reaches the limit, st left
+        mid-block."""
+        L, I, D = st.blocks["L"], st.blocks["I"], st.blocks["D"]
         dlen = len(dict_bytes)
 
         def prev_byte(k):
@@ -271,9 +279,30 @@ class Decoder:
 
         mlen = st.mlen
         while mlen > 0:
-            mlen = self._one_command(
-                reader, out, mlen, window_size, dist_cache, dict_bytes,
-                static_dict, st, prev_byte(1), prev_byte(2), prev_byte)
+            if resumable:
+                if out_limit is not None and len(out) >= out_limit:
+                    st.mlen = mlen
+                    raise NeedsMoreOutput()
+                ckpt = (reader.checkpoint(), len(out), list(dist_cache),
+                        mlen, (L.cur, L.prev, L.remaining),
+                        (I.cur, I.prev, I.remaining),
+                        (D.cur, D.prev, D.remaining))
+            try:
+                mlen = self._one_command(
+                    reader, out, mlen, window_size, dist_cache, dict_bytes,
+                    static_dict, st, prev_byte(1), prev_byte(2), prev_byte)
+            except NeedsMoreInput:
+                if not resumable:
+                    raise
+                reader.restore(ckpt[0])
+                del out[ckpt[1]:]
+                dist_cache[:] = ckpt[2]
+                st.mlen = ckpt[3]
+                (L.cur, L.prev, L.remaining) = ckpt[4]
+                (I.cur, I.prev, I.remaining) = ckpt[5]
+                (D.cur, D.prev, D.remaining) = ckpt[6]
+                raise
+        st.mlen = 0
 
     def _one_command(self, reader, out, mlen, window_size, dist_cache,
                      dict_bytes, static_dict, st, p1, p2, prev_byte):
@@ -361,6 +390,12 @@ class Decoder:
                 dist_cache.pop()
                 dist_cache.insert(0, distance)
         return mlen
+
+
+class NeedsMoreOutput(Exception):
+    """Raised by the resumable command loop when the output limit is
+    reached mid-metablock (the reference's BrotliResult
+    NeedsMoreOutput)."""
 
 
 @dataclass

@@ -1,12 +1,12 @@
 """Metablock serialization on the host.
 
 A trimmed copy of brotli_tpu/encode/bitstream.py: the window header,
-MLEN, the empty last and padding metablocks, the magic-number header,
-the uncompressed metablock (the store for spans whose compressed form
-would be larger), the trivial metablock -- one prefix code per
-category, its symbol stream built as (bits, nbits) item arrays in
-stream order and packed by the native runtime -- and the optimized
-metablock of the native planner (store_meta_block_auto).
+MLEN, the empty last, padding and metadata metablocks, the
+magic-number header, the uncompressed metablock (the store for spans
+whose compressed form would be larger), the trivial metablock -- one
+prefix code per category, its symbol stream built as (bits, nbits)
+item arrays in stream order and packed by the native runtime -- and
+the optimized metablock of the native planner (store_meta_block_auto).
 """
 
 from __future__ import annotations
@@ -49,6 +49,26 @@ def write_padding_meta_block(writer: BitWriter):
     writer.write(0, 1)   # reserved
     writer.write(0, 2)   # MSKIPBYTES = 0
     writer.align_to_byte()
+
+
+def write_metadata_meta_block(writer: BitWriter, payload: bytes):
+    """A skippable metadata metablock carrying `payload` (reference
+    BrotliWriteMetadataMetaBlock)."""
+    n = len(payload)
+    if n >= 1 << 24:
+        raise ValueError(f"metadata of {n} bytes: at most 2^24 - 1")
+    writer.write(0, 1)   # ISLAST
+    writer.write(3, 2)   # MNIBBLES == 0
+    writer.write(0, 1)   # reserved
+    if n == 0:
+        writer.write(0, 2)
+    else:
+        nbytes = max(1, ((n - 1).bit_length() + 7) // 8)
+        writer.write(nbytes, 2)
+        writer.write(n - 1, 8 * nbytes)
+    writer.align_to_byte()
+    if n:
+        writer.write_bytes(payload)
 
 
 FORMAT_VERSION = 1

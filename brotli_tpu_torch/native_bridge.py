@@ -17,14 +17,17 @@ of device-decoded commands (lz_execute).  For the host encoder
 planner), the whole-stream q0/q1 and q2/q3 pipelines
 (compress_fragment_pipeline, compress_session_pipeline), the
 per-metablock fragment parse (fragment_parse_seg), the match finder
-(find_best_matches), ParseSession (the incremental search + parse),
-and the C API's work pool (work_pool_compress) and
-max_compressed_size.  For the optimal parser (encode/zopfli.py): the
-candidate collectors (collect_matches, collect_dict_sorted over the
-sorted dictionary index, collect_dict over the hashed one), the literal
-cost estimate (est_lit), the candidate preparation (zopfli_cands*), the
-DPs (zopfli_dp_cands over candidates, zopfli_dp_cache and zopfli_dp
-over edge lists) and their backtrack (zopfli_backtrack).
+(find_best_matches), ParseSession (the incremental search + parse,
+which the streaming compressor extends chunk by chunk), and the C
+API's work pool (work_pool_compress), max_compressed_size and the
+preallocated encoder (prealloc_scratch_size, compress_prealloc).  For
+the FFI: decode_into, the decode into a caller's buffer.  For the
+optimal parser (encode/zopfli.py): the candidate collectors
+(collect_matches, collect_dict_sorted over the sorted dictionary index,
+collect_dict over the hashed one), the literal cost estimate (est_lit),
+the candidate preparation (zopfli_cands*), the DPs (zopfli_dp_cands
+over candidates, zopfli_dp_cache and zopfli_dp over edge lists) and
+their backtrack (zopfli_backtrack).
 
 Every binding returns arrays of its own (no buffer is pooled across
 calls), so results may be kept and handed across threads.  The
@@ -232,6 +235,8 @@ def _bind(lib) -> None:
     lib.parse_session_prime.argtypes = [ctypes.c_void_p, I64]
     lib.parse_session_end.restype = None
     lib.parse_session_end.argtypes = [ctypes.c_void_p]
+    lib.parse_session_extend.restype = None
+    lib.parse_session_extend.argtypes = [ctypes.c_void_p, U8P, I64]
     size_t = ctypes.c_size_t
     lib.BrotliEncoderMaxCompressedSize.restype = size_t
     lib.BrotliEncoderMaxCompressedSize.argtypes = [size_t]
@@ -243,6 +248,12 @@ def _bind(lib) -> None:
         ctypes.c_void_p, size_t, ctypes.POINTER(ctypes.c_uint32),
         ctypes.POINTER(ctypes.c_uint32), size_t, ctypes.c_char_p,
         ctypes.POINTER(size_t), ctypes.c_char_p, size_t]
+    lib.BrotliEncoderPreallocScratchSizeQ.restype = size_t
+    lib.BrotliEncoderPreallocScratchSizeQ.argtypes = [size_t, ctypes.c_int]
+    lib.BrotliEncoderCompressPrealloc.restype = ctypes.c_int
+    lib.BrotliEncoderCompressPrealloc.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, size_t, ctypes.c_char_p,
+        ctypes.POINTER(size_t), ctypes.c_char_p, size_t, ctypes.c_char_p]
     _bind_optimal_parser(lib)
 
 
@@ -350,6 +361,21 @@ _decode_out = None  # pooled output buffer: a fresh multi-MB array pays a
 POOL_MAX = 1 << 26  # larger outputs get a buffer of their own
 
 
+def _decode_native(src, out, cd, large_window) -> int:
+    """One native decode of u8 `src` into u8 `out` after the custom
+    dictionary `cd`, on the table kept across calls; returns its code:
+    the decoded length, -1 (truncated), -2 (corrupt) or -3 (`out` too
+    small)."""
+    global _table_mem
+    lib = get_lib()
+    if _table_mem is None:
+        _table_mem = np.zeros(1 << 23, dtype=np.int32)
+    return lib.decode_native(
+        _ptr(src, U8P), len(src), _ptr(out, U8P), len(out),
+        _ptr(cd, U8P) if len(cd) else U8P(), len(cd),
+        int(large_window), _ptr(_table_mem, I32P), len(_table_mem))
+
+
 def decode(data: bytes, custom_dictionary: bytes = b"",
            large_window: bool = False) -> bytes:
     """Native one-shot decode; `custom_dictionary` is the output before
@@ -357,10 +383,7 @@ def decode(data: bytes, custom_dictionary: bytes = b"",
     header.  Raises ValueError(code) with code -1 (truncated) or -2
     (corrupt).  The table and an output buffer of up to POOL_MAX bytes
     are kept across calls."""
-    global _table_mem, _decode_out
-    lib = get_lib()
-    if _table_mem is None:
-        _table_mem = np.zeros(1 << 23, dtype=np.int32)
+    global _decode_out
     src = np.frombuffer(bytes(data), dtype=np.uint8)
     cd = np.frombuffer(bytes(custom_dictionary), dtype=np.uint8)
     cap = 4 * len(src) + (1 << 16)
@@ -372,10 +395,7 @@ def decode(data: bytes, custom_dictionary: bytes = b"",
             cap = len(out)
         else:
             out = np.empty(cap, dtype=np.uint8)
-        r = lib.decode_native(
-            _ptr(src, U8P), len(src), _ptr(out, U8P), cap,
-            _ptr(cd, U8P) if len(cd) else U8P(), len(cd),
-            int(large_window), _ptr(_table_mem, I32P), len(_table_mem))
+        r = _decode_native(src, out, cd, large_window)
         if r == -3:  # output buffer too small
             if cap >= 1 << 40:
                 raise MemoryError("decoded output exceeds 1 TiB")
@@ -384,6 +404,27 @@ def decode(data: bytes, custom_dictionary: bytes = b"",
         if r < 0:
             raise ValueError(int(r))
         return out[:r].tobytes()
+
+
+def decode_into(data: bytes, out, custom_dictionary: bytes = b"",
+                large_window: bool = False) -> int:
+    """Preallocated decode (the reference's
+    BrotliDecoderDecompressPrealloc): decode into the caller's writable
+    buffer, nothing allocated beyond decode()'s table.  Returns the
+    decoded length; raises TypeError for a read-only buffer, BufferError
+    where the buffer is too small, ValueError(code) on corrupt or
+    truncated input."""
+    out_arr = np.frombuffer(out, dtype=np.uint8)
+    if not out_arr.flags.writeable:
+        raise TypeError("decode_into: the output buffer is read-only")
+    r = _decode_native(np.frombuffer(bytes(data), dtype=np.uint8), out_arr,
+                       np.frombuffer(bytes(custom_dictionary),
+                                     dtype=np.uint8), large_window)
+    if r == -3:
+        raise BufferError("output buffer too small")
+    if r < 0:
+        raise ValueError(int(r))
+    return int(r)
 
 
 def lz_execute(prefix: bytes, lits, cmds, ncmd: int, window: int,
@@ -846,11 +887,14 @@ class ParseSession:
         if not self._handle:
             raise RuntimeError("parse_session_begin: no free session")
 
-    def next(self, boundary_rel: int, max_cmds: int):
+    def next(self, boundary_rel: int, max_cmds: int | None = None):
         """Parse up to boundary_rel (relative to the dictionary's end);
-        returns one segment (insert[], wire[], dist[], advance[])."""
+        returns one segment (insert[], wire[], dist[], advance[]).  By
+        default room for boundary_rel // 2 + 2 commands."""
         if self._handle is None:
             raise RuntimeError("ParseSession: closed")
+        if max_cmds is None:
+            max_cmds = boundary_rel // 2 + 2
         outs = [np.empty(max_cmds, dtype=np.int64) for _ in range(4)]
         cnt = self._lib.parse_session_next(
             self._handle, boundary_rel, *[_ptr(a) for a in outs], max_cmds)
@@ -863,6 +907,17 @@ class ParseSession:
         if self._handle is None:
             raise RuntimeError("ParseSession: closed")
         self._lib.parse_session_prime(self._handle, boundary_rel)
+
+    def extend(self, data):
+        """Append input to a live session (the streaming compressor's
+        PROCESS): `data` holds the session's earlier bytes unchanged as
+        its prefix.  The session keeps `data` (a view of the caller's
+        buffer, not a copy) so that the native pointer stays valid."""
+        if self._handle is None:
+            raise RuntimeError("ParseSession: closed")
+        self._data = np.ascontiguousarray(data, dtype=np.uint8)
+        self._lib.parse_session_extend(
+            self._handle, _ptr(self._data, U8P), len(self._data))
 
     def close(self):
         if self._handle is not None:
@@ -1241,6 +1296,28 @@ def collect_dict_sorted(data, dict_len, window_size, progress=None,
 def max_compressed_size(input_size: int) -> int:
     """The C API's BrotliEncoderMaxCompressedSize."""
     return int(get_lib().BrotliEncoderMaxCompressedSize(input_size))
+
+
+def prealloc_scratch_size(input_size: int, quality: int) -> int:
+    """The scratch arena compress_prealloc needs (the C API's
+    BrotliEncoderPreallocScratchSizeQ)."""
+    return int(get_lib().BrotliEncoderPreallocScratchSizeQ(input_size,
+                                                           quality))
+
+
+def compress_prealloc(quality: int, lgwin: int, mode: int, data: bytes,
+                      scratch) -> bytes | None:
+    """One-shot encode whose big scratch is the caller's arena `scratch`
+    (a ctypes char buffer; the C API's BrotliEncoderCompressPrealloc,
+    q0-q9).  Returns the stream, or None where the C API refuses
+    (quality above 9, an arena too small)."""
+    data = bytes(data)
+    enc = ctypes.create_string_buffer(len(data) + (1 << 16))
+    esz = ctypes.c_size_t(len(enc))
+    ok = get_lib().BrotliEncoderCompressPrealloc(
+        quality, lgwin, mode, len(data), data, ctypes.byref(esz), enc,
+        len(scratch), scratch)
+    return enc.raw[:esz.value] if ok == 1 else None
 
 
 _work_pool = None

@@ -119,6 +119,24 @@ noise, slowly varying integers, random bytes), then:
                 made with a custom dictionary and one made with a
                 large window (lgwin 26), with its MB/s; prints the
                 phase's wall
+  streaming     the streaming layer (no kernel; the card machine's
+                CPU): the Compressor at q5 over the corpus in 64 KiB
+                pieces (its default chunk, flush every 4 MiB, one
+                metadata block), at q9 on the first 8 MiB and at q11 on
+                the first MiB, each beside one-shot compress (q5 and q9
+                within 0.5% of it); the pure-Python StreamDecoder on 1
+                MiB of the repo's text in 4 KiB pieces with max_output
+                65536 (its kept window bounded) and on 64 KiB one byte
+                at a time; CompressorWriter on 8 MiB, a Decompressor
+                reading 512 KiB back in 4 KiB reads, CompressorReader
+                and DecompressorWriter; the FFI: an encoder instance
+                (PROCESS, FLUSH, EMIT_METADATA, FINISH, TakeOutput in 4
+                KiB bites), CompressPrealloc, DecompressWithReturnInfo
+                on the corpus's q5 stream, a decoder instance on 512
+                KiB, and a corrupt stream giving the error result; MB/s
+                and ratio for each under the card line; every stream
+                decodes back through libbrotlidec and decompress;
+                prints the phase's wall
   cpu check     each path on the card equals the same path with
                 device="cpu" byte for byte on a 1 MiB prefix
                 (compress_mesh at q5 and q9 over 8 shards), and
@@ -163,6 +181,7 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import io
 import json
 import os
 import re
@@ -208,6 +227,8 @@ MESH_SHARDS = 8             # compress_mesh: 8 shards of 4 MiB
 HOST_Q9_MIB = 8             # the host encoder's q9 on the corpus's head
 HOST_BATCH = 256            # compress_batch: slices of 64 KiB
 HOST_ZOPFLI_MIB = 8         # the optimal parser on the corpus's head
+STREAM_Q9_MIB = 8           # the streaming phase's q9, io and FFI inputs
+STREAM_FLUSH_MIB = 4        # the streaming Compressor flushes this often
 ZOPFLI_BATCH = 64           # compress_batch at q11: slices of 64 KiB
 MESH_ROW = 8 << 20          # a shard row: a 4 MiB halo and 4 MiB shard
 # compress_mesh's folds by quality (fold_cuda.config_name)
@@ -879,6 +900,233 @@ def optimal_parser_phase(corpus, card):
             f"MB/s ({dt:.3f} s)")
 
 
+def streaming_phase(corpus, card):
+    """The streaming layer on this machine's CPU: the Compressor at q5
+    over the corpus in 64 KiB pieces (its default chunk, flush() every
+    STREAM_FLUSH_MIB MiB, one emit_metadata, finish()), at q9 on its
+    first STREAM_Q9_MIB MiB and at q11 on its first MiB, each beside
+    one-shot compress at the same quality (q5 and q9 within 0.5% of
+    it); the pure-Python StreamDecoder on a q5 stream of a 1 MiB slice
+    at lgwin 16 fed 4 KiB at a time with max_output 65536, and on a 64
+    KiB stream fed one byte at a time, its kept window bounded; the io
+    wrappers (CompressorWriter over STREAM_Q9_MIB MiB, a Decompressor
+    reading 512 KiB of it back in 4 KiB reads, CompressorReader and
+    DecompressorWriter once each); the FFI (an encoder instance over
+    STREAM_Q9_MIB MiB through PROCESS, FLUSH, EMIT_METADATA and FINISH
+    with TakeOutput in 4 KiB bites, BrotliEncoderCompressPrealloc q5 on
+    as much, BrotliDecoderDecompressWithReturnInfo on the q5 stream of
+    the corpus, a decoder instance on 512 KiB, a corrupt stream that
+    must give BROTLI_DECODER_RESULT_ERROR).  Every stream decodes back
+    through libbrotlidec and the port's decompress.  Prints MB/s (host
+    wall clock, one call) and ratio for each under the card line."""
+    from brotli_tpu_torch import (Compressor, CompressorReader,
+                                  CompressorWriter, Decompressor,
+                                  DecompressorWriter, StreamDecoder,
+                                  compress, decompress, ffi)
+    name, decode = _decoder()
+    log(f"streaming phase on {card}")
+
+    def round_trip(out, data, what):
+        _round_trip(name, decode, out, data, f"streaming {what}")
+        if decompress(out) != data:
+            raise AssertionError(f"streaming {what}: the port's decompress "
+                                 "differs")
+
+    def rate(what, n_in, n_out, dt):
+        log(f"streaming {what}: {n_in / dt / 1e6:.2f} MB/s, ratio "
+            f"{n_in / n_out:.4f} ({n_in} -> {n_out} bytes, {dt:.3f} s)")
+
+    def stream_compress(data, quality):
+        c = Compressor(quality=quality, lgwin=22)
+        parts, piece = [], 64 << 10
+        flush_every = (STREAM_FLUSH_MIB << 20) // piece
+        pieces = range(0, len(data), piece)
+        for k, at in enumerate(pieces):
+            parts.append(c.process(data[at:at + piece]))
+            if (k + 1) % flush_every == 0:
+                parts.append(c.flush())
+            if k == len(pieces) // 2:
+                parts.append(c.emit_metadata(b"chip_smoke streaming"))
+        parts.append(c.finish())
+        return b"".join(parts), c.chunk_size
+
+    streams = {}
+    for q, data in ((5, corpus), (9, corpus[:STREAM_Q9_MIB << 20]),
+                    (11, corpus[:1 << 20])):
+        t0 = time.perf_counter()
+        out, chunk = stream_compress(data, q)
+        dt = time.perf_counter() - t0
+        rate(f"Compressor q{q} ({len(data) >> 20} MiB, chunk {chunk})",
+             len(data), len(out), dt)
+        t0 = time.perf_counter()
+        one = compress(data, quality=q, lgwin=22)
+        dt = time.perf_counter() - t0
+        rate(f"compress q{q} one-shot", len(data), len(one), dt)
+        excess = len(out) / len(one) - 1
+        log(f"streaming q{q}: {excess * 100:+.3f}% against one-shot")
+        if q < 10 and excess > 0.005:
+            raise AssertionError(f"streaming q{q}: {excess:.4%} larger "
+                                 "than one-shot")
+        round_trip(out, data, f"Compressor q{q}")
+        streams[q] = out
+
+    # the pure-Python decoders read the corpus's first quarter, the
+    # repo's text: at a mebibyte a unit of the 32 MiB corpus
+    unit = len(corpus) >> 5
+    piece = corpus[2 * unit:2 * unit + (1 << 20)]
+    comp = compress(piece, quality=5, lgwin=16)
+    sd, got, most = StreamDecoder(), [], 0
+    t0 = time.perf_counter()
+    for at in range(0, len(comp), 4096):
+        got.append(sd.decompress(comp[at:at + 4096], max_output=65536))
+        most = max(most, len(sd._out._buf))
+    while sd.has_more_output or not sd.finished:
+        more = sd.decompress(b"", max_output=65536)
+        most = max(most, len(sd._out._buf))
+        if not more and sd.finished:
+            break
+        got.append(more)
+    got.append(sd.finish())
+    dt = time.perf_counter() - t0
+    if b"".join(got) != piece or max(map(len, got)) > 65536:
+        raise AssertionError("StreamDecoder, 4 KiB pieces: output differs")
+    window = (1 << 16) - 16
+    if most > window + 2 * 65536:
+        raise AssertionError(f"StreamDecoder kept {most} bytes")
+    log(f"streaming StreamDecoder q5 lgwin 16 (1 MiB, 4 KiB pieces, "
+        f"max_output 65536): {len(piece) / dt / 1e6:.3f} MB/s ({dt:.3f} "
+        f"s), {len(got)} calls, at most {most} bytes kept (window "
+        f"{window})")
+    small = corpus[3 * unit:3 * unit + (64 << 10)]
+    comp = compress(small, quality=5, lgwin=22)
+    sd, got = StreamDecoder(), bytearray()
+    t0 = time.perf_counter()
+    for at in range(len(comp)):
+        got += sd.decompress(comp[at:at + 1])
+    got += sd.finish()
+    dt = time.perf_counter() - t0
+    if bytes(got) != small:
+        raise AssertionError("StreamDecoder, one byte at a time: differs")
+    log(f"streaming StreamDecoder one byte at a time (64 KiB, {len(comp)} "
+        f"calls): {len(small) / dt / 1e6:.3f} MB/s ({dt:.3f} s), "
+        f"{len(sd._out._buf)} bytes kept")
+
+    head = corpus[:STREAM_Q9_MIB << 20]
+    sink = io.BytesIO()
+    t0 = time.perf_counter()
+    w = CompressorWriter(sink)
+    for at in range(0, len(head), 64 << 10):
+        w.write(head[at:at + (64 << 10)])
+    written = w.into_inner().getvalue()
+    dt = time.perf_counter() - t0
+    rate(f"CompressorWriter q9 ({STREAM_Q9_MIB} MiB)", len(head),
+         len(written), dt)
+    round_trip(written, head, "CompressorWriter")
+    r = Decompressor(io.BytesIO(written))
+    t0 = time.perf_counter()
+    back = b"".join(r.read(4096) for _ in range(128))
+    dt = time.perf_counter() - t0
+    if back != head[:512 << 10]:
+        raise AssertionError("Decompressor: the first 512 KiB differ")
+    log(f"streaming Decompressor 512 KiB in 4 KiB reads: "
+        f"{len(back) / dt / 1e6:.3f} MB/s ({dt:.3f} s)")
+    t0 = time.perf_counter()
+    read = CompressorReader(io.BytesIO(head), quality=5).read()
+    dt = time.perf_counter() - t0
+    rate(f"CompressorReader q5 ({STREAM_Q9_MIB} MiB)", len(head), len(read),
+         dt)
+    round_trip(read, head, "CompressorReader")
+    part = corpus[4 * unit:4 * unit + (256 << 10)]
+    comp = compress(part, quality=9)
+    t0 = time.perf_counter()
+    dw = DecompressorWriter(io.BytesIO())
+    for at in range(0, len(comp), 4096):
+        dw.write(comp[at:at + 4096])
+    written = dw.into_inner().getvalue()
+    dt = time.perf_counter() - t0
+    if written != part:
+        raise AssertionError("DecompressorWriter: output differs")
+    log(f"streaming DecompressorWriter 256 KiB in 4 KiB writes: "
+        f"{len(part) / dt / 1e6:.3f} MB/s ({dt:.3f} s)")
+
+    st = ffi.BrotliEncoderCreateInstance()
+    if not ffi.BrotliEncoderSetParameter(st, ffi.BROTLI_PARAM_QUALITY, 5):
+        raise AssertionError("BrotliEncoderSetParameter failed")
+    out = bytearray()
+    t0 = time.perf_counter()
+    for k, at in enumerate(range(0, len(head), 1 << 20)):
+        ops = [(ffi.BROTLI_OPERATION_PROCESS, head[at:at + (1 << 20)])]
+        if k == 2:
+            ops.append((ffi.BROTLI_OPERATION_FLUSH, b""))
+        if k == 4:
+            ops.append((ffi.BROTLI_OPERATION_EMIT_METADATA, b""))
+        for op, data in ops:
+            # the metadata payload is read by EMIT_METADATA alone
+            if not ffi.BrotliEncoderCompressStream(
+                    st, op, data, metadata=b"ffi metadata"):
+                raise AssertionError(f"BrotliEncoderCompressStream op {op} "
+                                     "failed")
+            while ffi.BrotliEncoderHasMoreOutput(st):
+                out += ffi.BrotliEncoderTakeOutput(st, 4096)
+    if not ffi.BrotliEncoderCompressStream(st, ffi.BROTLI_OPERATION_FINISH):
+        raise AssertionError("BrotliEncoderCompressStream FINISH failed")
+    while ffi.BrotliEncoderHasMoreOutput(st):
+        out += ffi.BrotliEncoderTakeOutput(st, 4096)
+    dt = time.perf_counter() - t0
+    if not ffi.BrotliEncoderIsFinished(st):
+        raise AssertionError("the FFI encoder did not finish")
+    ffi.BrotliEncoderDestroyInstance(st)
+    rate(f"FFI encoder instance q5 ({STREAM_Q9_MIB} MiB)", len(head),
+         len(out), dt)
+    round_trip(bytes(out), head, "FFI encoder instance")
+    t0 = time.perf_counter()
+    pre = ffi.BrotliEncoderCompressPrealloc(5, 22, 0, head)
+    dt = time.perf_counter() - t0
+    if pre is None:
+        raise AssertionError("BrotliEncoderCompressPrealloc failed")
+    rate(f"FFI BrotliEncoderCompressPrealloc q5 ({STREAM_Q9_MIB} MiB)",
+         len(head), len(pre), dt)
+    round_trip(pre, head, "BrotliEncoderCompressPrealloc")
+    buf = bytearray(len(corpus))
+    t0 = time.perf_counter()
+    info = ffi.BrotliDecoderDecompressWithReturnInfo(streams[5], buf)
+    dt = time.perf_counter() - t0
+    if info.result != ffi.BROTLI_DECODER_RESULT_SUCCESS or \
+            info.decoded_size != len(corpus) or buf != corpus:
+        raise AssertionError(f"BrotliDecoderDecompressWithReturnInfo: "
+                             f"{info.result} {info.error}")
+    log(f"streaming FFI DecompressWithReturnInfo ({len(corpus) >> 20} MiB "
+        f"q5 stream): "
+        f"{len(corpus) / dt / 1e6:.2f} MB/s ({dt:.3f} s)")
+    st = ffi.BrotliDecoderCreateInstance()
+    part = corpus[5 * unit:5 * unit + (512 << 10)]
+    comp = compress(part, quality=5)
+    got, res = bytearray(), None
+    t0 = time.perf_counter()
+    for at in range(0, len(comp), 4096):
+        res = ffi.BrotliDecoderDecompressStream(st, comp[at:at + 4096])
+        if res == ffi.BROTLI_DECODER_RESULT_ERROR:
+            raise AssertionError(ffi.BrotliDecoderErrorString(st))
+        got += ffi.BrotliDecoderTakeOutput(st)
+    dt = time.perf_counter() - t0
+    if res != ffi.BROTLI_DECODER_RESULT_SUCCESS or \
+            not ffi.BrotliDecoderIsFinished(st) or \
+            bytes(got) != part:
+        raise AssertionError("FFI decoder instance: output differs")
+    log(f"streaming FFI decoder instance 512 KiB: "
+        f"{len(got) / dt / 1e6:.3f} MB/s ({dt:.3f} s)")
+    bad = bytearray(comp)
+    bad[40:60] = b"\xff" * 20
+    st = ffi.BrotliDecoderCreateInstance()
+    res = ffi.BrotliDecoderDecompressStream(st, bytes(bad))
+    if res != ffi.BROTLI_DECODER_RESULT_ERROR or \
+            ffi.BrotliDecoderGetErrorCode(st) == 0:
+        raise AssertionError(f"FFI decoder on a corrupt stream: {res}")
+    log(f"streaming FFI corrupt stream: BROTLI_DECODER_RESULT_ERROR "
+        f"({ffi.BrotliDecoderErrorString(st)})")
+    log(f"streaming round trips: ok through {name} and decompress")
+
+
 def cpu_check(corpus, dev):
     from brotli_tpu_torch import compress_fast, compress_gpu, compress_mesh
     prefix = corpus[:1 << 20]
@@ -1520,6 +1768,9 @@ def main() -> int:
     t0 = time.perf_counter()
     optimal_parser_phase(corpus, card)
     log(f"optimal parser phase wall: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    streaming_phase(corpus, card)
+    log(f"streaming phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cpu_check(corpus, dev)
     decode_cpu_check(corpus, dev, enc)

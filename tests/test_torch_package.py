@@ -31,7 +31,9 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
         "brotli_tpu_torch.utils.profiling, "
         "brotli_tpu_torch.encode.encoder, brotli_tpu_torch.encode.batch, "
         "brotli_tpu_torch.parallel.multi, brotli_tpu_torch.utils.ir, "
-        "brotli_tpu_torch.encode.zopfli, brotli_tpu_torch.decode.batch\n"
+        "brotli_tpu_torch.encode.zopfli, brotli_tpu_torch.decode.batch, "
+        "brotli_tpu_torch.decode.stream, brotli_tpu_torch.encode.streaming, "
+        "brotli_tpu_torch.io_wrappers, brotli_tpu_torch.ffi\n"
         "from brotli_tpu_torch import *\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'brotli_tpu' or "
@@ -44,13 +46,10 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
     assert r.stdout.strip() == ""
 
 
-# brotli_tpu's exports the port has yet to port (StreamDecoder, the
-# streaming Compressor and the io wrappers), and the port's own names:
-# the device entry points, among them the counterpart of
-# decompress_batch_tpu, decompress_batch_gpu
-STILL_TO_PORT = {"StreamDecoder", "Compressor", "CompressorReader",
-                 "CompressorWriter", "Decompressor", "DecompressorWriter",
-                 "decompress_batch_tpu"}
+# brotli_tpu's exports the port has under another name (the counterpart
+# of decompress_batch_tpu is decompress_batch_gpu), and the port's own
+# names: the device entry points
+STILL_TO_PORT = {"decompress_batch_tpu"}
 PORT_ONLY = {"compress_fast", "compress_gpu", "compress_mesh",
              "decompress_batch_gpu", "make_mesh", "resolve_device"}
 
