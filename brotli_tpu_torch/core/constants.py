@@ -66,6 +66,12 @@ def get_copy_length_code(copy_len):
         np.int64)
 
 
+def get_block_length_code(block_len):
+    bl = np.asarray(block_len, dtype=np.int64)
+    return (np.searchsorted(BLOCK_LEN_BASE, bl, side="right") - 1).astype(
+        np.int64)
+
+
 # The 704 command symbols are 11 cells of 64 (RFC 7932 section 5):
 # within a cell the low 3 bits select the copy code and bits 3-5 the
 # insert code; cells 0 and 1 imply distance code 0 and carry no

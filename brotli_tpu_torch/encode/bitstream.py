@@ -1,12 +1,17 @@
 """Metablock serialization on the host.
 
-A trimmed copy of brotli_tpu/encode/bitstream.py: the window header,
-MLEN, the empty last, padding and metadata metablocks, the
-magic-number header, the uncompressed metablock (the store for spans
-whose compressed form would be larger), the trivial metablock -- one
-prefix code per category, its symbol stream built as (bits, nbits)
-item arrays in stream order and packed by the native runtime -- and
-the optimized metablock of the native planner (store_meta_block_auto).
+A copy of brotli_tpu/encode/bitstream.py: the window header, MLEN, the
+empty last, padding and metadata metablocks, the magic-number header,
+the uncompressed metablock (the store for spans whose compressed form
+would be larger), context maps (move-to-front and zero-run coding), the
+trivial metablock (one prefix code per category), the optimized
+metablock of a MetaBlockPlan (block-switch codes, context maps, trees
+per literal context, per command block and per distance context;
+store_meta_block), and store_meta_block_auto, which runs the native
+planner and falls back to the pure-Python one on the blocks the native
+store refuses.  The symbol stream is built as (bits, nbits) item arrays
+in stream order, block switches inserted where they fire, and packed by
+the native runtime.
 """
 
 from __future__ import annotations
@@ -118,6 +123,93 @@ def store_uncompressed_meta_block(writer: BitWriter, data: bytes):
     writer.write_bytes(bytes(data))
 
 
+def write_count_code(writer: BitWriter, v: int):
+    """NBLTYPES / NTREES variable-length count (RFC 9.2)."""
+    assert 1 <= v <= 256
+    if v == 1:
+        writer.write(0, 1)
+        return
+    writer.write(1, 1)
+    nbits = (v - 1).bit_length() - 1
+    writer.write(nbits, 3)
+    writer.write(v - 1 - (1 << nbits), nbits)
+
+
+def mtf_encode(values: np.ndarray) -> np.ndarray:
+    """Forward move-to-front (decoder applies the inverse, RFC 7.3)."""
+    mtf = list(range(256))
+    out = np.empty(len(values), dtype=np.int64)
+    for i, v in enumerate(np.asarray(values).tolist()):
+        j = mtf.index(v)
+        out[i] = j
+        if j:
+            del mtf[j]
+            mtf.insert(0, v)
+    return out
+
+
+def write_context_map(writer: BitWriter, cmap: np.ndarray, ntrees: int):
+    """Serialize a context map with MTF + zero-RLE (RFC 7.3; reference
+    EncodeContextMap, brotli_bit_stream.rs:1783)."""
+    vals = mtf_encode(cmap)
+    # tokenize: zero runs -> (sym s, extra, s bits); values -> rlemax + v
+    runs = []
+    i = 0
+    n = len(vals)
+    max_run_bits = 0
+    while i < n:
+        if vals[i] == 0:
+            j = i
+            while j < n and vals[j] == 0:
+                j += 1
+            r = j - i
+            runs.append((0, r))
+            if r >= 2:
+                max_run_bits = max(max_run_bits, int(np.log2(r)))
+            i = j
+        else:
+            runs.append((int(vals[i]), 1))
+            i += 1
+    rlemax = min(16, max_run_bits)
+    tokens = []  # (symbol, extra_val, extra_bits)
+    for v, r in runs:
+        if v != 0:
+            tokens.append((rlemax + v, 0, 0))
+            continue
+        while r > 0:
+            if r == 1:
+                tokens.append((0, 0, 0))
+                r = 0
+            else:
+                s = min(rlemax, int(np.log2(r)))
+                if s == 0:
+                    tokens.append((0, 0, 0))
+                    r -= 1
+                    continue
+                take = min(r, (1 << s) + ((1 << s) - 1))
+                # ensure remainder is representable (avoid leaving r == 0
+                # mid-run is fine; any r >= 1 is representable)
+                extra = take - (1 << s)
+                tokens.append((s, extra, s))
+                r -= take
+    hist = np.zeros(ntrees + rlemax, dtype=np.int64)
+    for sym, _, _ in tokens:
+        hist[sym] += 1
+    lengths = build_huffman_lengths(hist)
+    if rlemax:
+        writer.write(1, 1)
+        writer.write(rlemax - 1, 4)
+    else:
+        writer.write(0, 1)
+    write_prefix_code(writer, lengths)
+    codes, emit_lens = encoding_table(lengths)
+    for sym, extra, ebits in tokens:
+        writer.write(int(codes[sym]), int(emit_lens[sym]))
+        if ebits:
+            writer.write(extra, ebits)
+    writer.write(1, 1)  # IMTF
+
+
 def extract_literals(data: np.ndarray, start: int, insert_len,
                      advance) -> np.ndarray:
     """The literal bytes of a command stream that starts at data[start]
@@ -179,82 +271,96 @@ def store_meta_block_trivial(writer: BitWriter, data: np.ndarray,
     write_prefix_code(writer, lit_lengths)
     write_prefix_code(writer, cmd_lengths)
     write_prefix_code(writer, dist_lengths)
-    emit_command_stream(writer, cmds, literals, lit_lengths, cmd_lengths,
-                        dist_lengths)
+    emit_command_stream(writer, cmds, literals,
+                        [lit_lengths], None,
+                        [cmd_lengths],
+                        [dist_lengths], None)
 
 
-def emit_command_stream(writer: BitWriter, cmds: CommandArrays,
-                        literals: np.ndarray, lit_lengths, cmd_lengths,
-                        dist_lengths):
-    """Emit the interleaved symbol stream of a one-code-per-category
-    metablock, vectorized: per command its symbol, insert/copy extra
-    bits, literals, then distance symbol + extra bits unless the
-    command implies distance 0."""
-    n = len(cmds)
-    ins_val, ins_nb, copy_val, copy_nb = command_extra_bits(cmds)
-    dist_mask = (cmds.copy_len > 0) & ~C.CMD_IMPLICIT_DIST0[cmds.cmd_sym]
+# ---------------------------------------------------------------------------
+# Full metablock (block types + context maps)
+# ---------------------------------------------------------------------------
 
-    items_per_cmd = 3 + cmds.insert_len + 2 * dist_mask
-    offs = np.zeros(n, dtype=np.int64)
-    np.cumsum(items_per_cmd[:-1], out=offs[1:])
-    total_items = int(items_per_cmd.sum())
-    bits = np.zeros(total_items, dtype=np.uint64)
-    nbits = np.zeros(total_items, dtype=np.int64)
 
-    cmd_code_b, cmd_code_n = encoding_table(cmd_lengths)
-    bits[offs] = cmd_code_b[cmds.cmd_sym].astype(np.uint64)
-    nbits[offs] = cmd_code_n[cmds.cmd_sym]
-    bits[offs + 1] = ins_val.astype(np.uint64)
-    nbits[offs + 1] = ins_nb
-    bits[offs + 2] = copy_val.astype(np.uint64)
-    nbits[offs + 2] = copy_nb
+def _write_block_switch_header(writer: BitWriter, plan, type_lengths,
+                               len_lengths):
+    """Per-category header: type code, length code, first block length."""
+    write_prefix_code(writer, type_lengths)
+    write_prefix_code(writer, len_lengths)
+    len_codes, len_emit = encoding_table(len_lengths)
+    flc = plan["first_len_code"]
+    writer.write(int(len_codes[flc]), int(len_emit[flc]))
+    writer.write(int(plan["first_len"] - C.BLOCK_LEN_BASE[flc]),
+                 int(C.BLOCK_LEN_EXTRA[flc]))
 
-    n_lit = len(literals)
-    if n_lit:
-        owner = np.repeat(np.arange(n), cmds.insert_len)
-        run_off = np.arange(n_lit) - np.repeat(
-            np.concatenate([[0], np.cumsum(cmds.insert_len)[:-1]]),
-            cmds.insert_len)
-        lit_pos = offs[owner] + 3 + run_off
-        lit_code_b, lit_code_n = encoding_table(lit_lengths)
-        bits[lit_pos] = lit_code_b[literals].astype(np.uint64)
-        nbits[lit_pos] = lit_code_n[literals]
 
-    d_idx = np.nonzero(dist_mask)[0]
-    if len(d_idx):
-        d_pos = offs[d_idx] + 3 + cmds.insert_len[d_idx]
-        d_syms = cmds.dist_code[d_idx]
-        dist_code_b, dist_code_n = encoding_table(dist_lengths)
-        bits[d_pos] = dist_code_b[d_syms].astype(np.uint64)
-        nbits[d_pos] = dist_code_n[d_syms]
-        bits[d_pos + 1] = cmds.dist_extra[d_idx].astype(np.uint64)
-        nbits[d_pos + 1] = cmds.dist_extra_bits[d_idx]
+def store_meta_block(writer: BitWriter, plan, is_last: bool):
+    """Serialize a fully-optimized metablock (reference store_meta_block,
+    brotli_bit_stream.rs:2035): block-switch codes, context maps, multiple
+    prefix codes per category, vectorized emission with switch insertion."""
+    writer.write(1 if is_last else 0, 1)
+    if is_last:
+        writer.write(0, 1)
+    write_mlen(writer, plan.mlen)
+    if not is_last:
+        writer.write(0, 1)  # ISUNCOMPRESSED = 0
 
-    writer.append_packed(*nb.pack_bits(bits, nbits))
+    switch_headers = []
+    for split_plan, nt in ((plan.lit_switch, plan.lit_ntypes),
+                           (plan.cmd_switch, plan.cmd_ntypes),
+                           (plan.dist_switch, plan.dist_ntypes)):
+        write_count_code(writer, nt)
+        if nt >= 2:
+            tl = build_huffman_lengths(_safe_hist(split_plan["type_hist"]))
+            ll = build_huffman_lengths(_safe_hist(split_plan["len_hist"]))
+            _write_block_switch_header(writer, split_plan, tl, ll)
+            switch_headers.append((tl, ll))
+        else:
+            switch_headers.append((None, None))
+
+    writer.write(plan.dist_params.npostfix, 2)
+    writer.write(plan.dist_params.ndirect >> plan.dist_params.npostfix, 4)
+    for _ in range(plan.lit_ntypes):
+        writer.write(plan.context_mode, 2)
+
+    write_count_code(writer, plan.ntrees_l)
+    if plan.ntrees_l >= 2:
+        write_context_map(writer, plan.cmap_l, plan.ntrees_l)
+    write_count_code(writer, plan.ntrees_d)
+    if plan.ntrees_d >= 2:
+        write_context_map(writer, plan.cmap_d, plan.ntrees_d)
+
+    for lengths in plan.lit_lengths:
+        write_prefix_code(writer, lengths)
+    for lengths in plan.cmd_lengths:
+        write_prefix_code(writer, lengths)
+    for lengths in plan.dist_lengths:
+        write_prefix_code(writer, lengths)
+
+    switches = _build_switch_items(plan, switch_headers)
+    emit_command_stream(writer, plan.cmds, plan.literals,
+                        plan.lit_lengths, plan.lit_tree,
+                        plan.cmd_lengths,
+                        plan.dist_lengths, plan.dist_tree,
+                        cmd_block=plan.cmd_tree, switches=switches)
+
+
 
 
 def store_meta_block_auto(writer: BitWriter, full, start: int, mlen: int,
                           cmds: CommandArrays, dist_params, quality: int,
                           size_hint: int, mode: int, is_last: bool,
                           enable_splits: bool = True,
-                          disable_literal_context_modeling: bool = False
-                          ) -> bool:
+                          disable_literal_context_modeling: bool = False):
     """Plan + serialize one optimized metablock through the native
-    planner (store_metablock_native); returns False, having written
-    nothing, where the planner refuses the block.
-
-    The JAX package (brotli_tpu/encode/bitstream.py:404) falls back to
-    its pure-Python planner (build_meta_block / store_meta_block), of
-    which the native planner is the byte-identical copy, where the
-    native store refuses a block for its buffer of 9 * mlen + 2^17
-    bits.  That refusal is conservative (16 bits for each literal of
-    the next insert), so a block of long inserts can be refused and
-    still come out at 8 bits a byte or less, which every caller keeps.
-    Here the native store then runs once more on a buffer for the worst
-    case, which gives the pure-Python planner's bytes; the Python
-    planner itself is not ported.  Where that store refuses too, the
-    caller stores the block uncompressed."""
-    from .metablock import choose_context_mode, choose_literal_context_map
+    planner (store_metablock_native); where the native store refuses the
+    block for its buffer of 9 * mlen + 2^17 bits (its refusal test
+    charges 16 bits for each literal of the next insert), the
+    pure-Python planner and store (metablock.build_meta_block +
+    store_meta_block) plan and write it instead, as the JAX package
+    does."""
+    from .metablock import (build_meta_block, choose_context_mode,
+                            choose_literal_context_map)
     region = full[start:start + mlen]
     ctx_mode = choose_context_mode(region, quality, mode)
     if disable_literal_context_modeling:
@@ -270,16 +376,21 @@ def store_meta_block_auto(writer: BitWriter, full, start: int, mlen: int,
     else:
         nlc, smap = 1, np.zeros(64, dtype=np.int64)
         lut0, lut1 = C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode]
-    args = (full, start, mlen, is_last, cmds, dist_params.npostfix,
-            dist_params.ndirect, dist_params.alphabet_size, quality,
-            ctx_mode, nlc, smap, lut0, lut1, enable_splits)
-    res = nb.store_metablock(*args)
-    if res is None:
-        res = nb.store_metablock(*args, cap_bits=nb.worst_case_bits(mlen))
-    if res is None:
-        return False
-    writer.append_packed(*res)
-    return True
+    res = nb.store_metablock(
+        full, start, mlen, is_last, cmds, dist_params.npostfix,
+        dist_params.ndirect, dist_params.alphabet_size, quality,
+        ctx_mode, nlc, smap, lut0, lut1, enable_splits)
+    if res is not None:
+        writer.append_packed(*res)
+        return
+    plan = build_meta_block(full, start, mlen, cmds, dist_params,
+                            quality, size_hint, mode=mode,
+                            enable_splits=enable_splits,
+                            num_lit_ctx=1 if
+                            disable_literal_context_modeling else None,
+                            lit_static_map=np.zeros(64, np.int64) if
+                            disable_literal_context_modeling else None)
+    store_meta_block(writer, plan, is_last)
 
 
 def store_meta_block_or_raw(writer: BitWriter, full, start: int, mlen: int,
@@ -296,18 +407,144 @@ def store_meta_block_or_raw(writer: BitWriter, full, start: int, mlen: int,
     state = writer.save_state()
     before = writer.bit_length()
     if quality >= 4:
-        kept = store_meta_block_auto(
+        store_meta_block_auto(
             writer, full, start, mlen, cmds, dist_params, quality,
             size_hint, mode, is_last,
             disable_literal_context_modeling=disable_literal_context_modeling)
     else:
         store_meta_block_trivial(writer, full, start, mlen, is_last, cmds,
                                  dist_params)
-        kept = True
-    if kept and writer.bit_length() - before <= 8 * mlen + 40:
+    if writer.bit_length() - before <= 8 * mlen + 40:
         return True
     writer.restore_state(state)
     store_uncompressed_meta_block(writer, full[start:start + mlen].tobytes())
     if is_last:
         write_empty_last_meta_block(writer)
     return False
+
+
+def _build_switch_items(plan, switch_headers):
+    """Per-category block-switch wire items: (at_symbol_index,
+    3 x (bits, nbits)) keyed by category."""
+    out = {}
+    for cat, split_plan, (tl, ll) in zip(
+            ("lit", "cmd", "dist"),
+            (plan.lit_switch, plan.cmd_switch, plan.dist_switch),
+            switch_headers):
+        if tl is None or split_plan is None \
+                or len(split_plan["switch_at"]) == 0:
+            continue
+        tcodes, temit = encoding_table(tl)
+        lcodes, lemit = encoding_table(ll)
+        at = split_plan["switch_at"]
+        m = len(at)
+        bits = np.zeros((m, 3), dtype=np.uint64)
+        nbits = np.zeros((m, 3), dtype=np.int64)
+        for j in range(m):
+            ts = split_plan["type_syms"][j]
+            lc = split_plan["len_codes"][j]
+            ev, eb = split_plan["len_extra"][j]
+            bits[j] = (int(tcodes[ts]), int(lcodes[lc]), ev)
+            nbits[j] = (int(temit[ts]), int(lemit[lc]), eb)
+        out[cat] = (np.asarray(at, dtype=np.int64), bits, nbits)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Vectorized command-stream emission
+# ---------------------------------------------------------------------------
+
+
+def emit_command_stream(writer: BitWriter, cmds: CommandArrays,
+                        literals: np.ndarray,
+                        lit_codes_list, lit_tree_of_literal,
+                        cmd_codes_list,
+                        dist_codes_list, dist_tree_of_dist,
+                        cmd_block=None, switches=None):
+    """Emit the interleaved symbol stream of one metablock, vectorized.
+
+    lit_codes_list / cmd_codes_list / dist_codes_list: per-tree code-length
+    arrays.  lit_tree_of_literal (int[n_lit]) selects the tree per literal
+    (None = tree 0); dist_tree_of_dist likewise per distance symbol.
+    cmd_block (int[n_cmd]) selects the command tree (None = tree 0).
+    switches: dict of category -> (at_symbol_index, bits[m,3], nbits[m,3])
+    block-switch items inserted before the at-index-th symbol of that
+    category (RFC 6: switches fire when the category counter exhausts).
+    """
+    n = len(cmds)
+    ins_val, ins_nb, copy_val, copy_nb = command_extra_bits(cmds)
+    dist_mask = (cmds.copy_len > 0) & ~C.CMD_IMPLICIT_DIST0[cmds.cmd_sym]
+
+    # Per-command item counts: cmd, ins_extra, copy_extra, literals, [dist+extra]
+    items_per_cmd = 3 + cmds.insert_len + 2 * dist_mask
+    offs = np.zeros(n, dtype=np.int64)
+    np.cumsum(items_per_cmd[:-1], out=offs[1:])
+    total_items = int(items_per_cmd.sum())
+
+    bits = np.zeros(total_items, dtype=np.uint64)
+    nbits = np.zeros(total_items, dtype=np.int64)
+
+    # command symbols
+    cmd_tree = (np.zeros(n, dtype=np.int64) if cmd_block is None
+                else np.asarray(cmd_block))
+    cmd_code_b = np.stack([encoding_table(l)[0] for l in cmd_codes_list])
+    cmd_code_n = np.stack([encoding_table(l)[1] for l in cmd_codes_list])
+    bits[offs] = cmd_code_b[cmd_tree, cmds.cmd_sym].astype(np.uint64)
+    nbits[offs] = cmd_code_n[cmd_tree, cmds.cmd_sym]
+    # insert/copy extra bits
+    bits[offs + 1] = ins_val.astype(np.uint64)
+    nbits[offs + 1] = ins_nb
+    bits[offs + 2] = copy_val.astype(np.uint64)
+    nbits[offs + 2] = copy_nb
+
+    # literals
+    n_lit = len(literals)
+    lit_pos = np.zeros(0, dtype=np.int64)
+    if n_lit:
+        owner = np.repeat(np.arange(n), cmds.insert_len)
+        run_off = np.arange(n_lit) - np.repeat(
+            np.concatenate([[0], np.cumsum(cmds.insert_len)[:-1]]),
+            cmds.insert_len)
+        lit_pos = offs[owner] + 3 + run_off
+        lit_tree = (np.zeros(n_lit, dtype=np.int64)
+                    if lit_tree_of_literal is None
+                    else np.asarray(lit_tree_of_literal))
+        lit_code_b = np.stack([encoding_table(l)[0] for l in lit_codes_list])
+        lit_code_n = np.stack([encoding_table(l)[1] for l in lit_codes_list])
+        bits[lit_pos] = lit_code_b[lit_tree, literals].astype(np.uint64)
+        nbits[lit_pos] = lit_code_n[lit_tree, literals]
+
+    # distance symbols + extra bits
+    d_idx = np.nonzero(dist_mask)[0]
+    d_pos = np.zeros(0, dtype=np.int64)
+    if len(d_idx):
+        d_pos = offs[d_idx] + 3 + cmds.insert_len[d_idx]
+        d_syms = cmds.dist_code[d_idx]
+        d_tree = (np.zeros(len(d_idx), dtype=np.int64)
+                  if dist_tree_of_dist is None
+                  else np.asarray(dist_tree_of_dist))
+        dist_code_b = np.stack([encoding_table(l)[0] for l in dist_codes_list])
+        dist_code_n = np.stack([encoding_table(l)[1] for l in dist_codes_list])
+        bits[d_pos] = dist_code_b[d_tree, d_syms].astype(np.uint64)
+        nbits[d_pos] = dist_code_n[d_tree, d_syms]
+        bits[d_pos + 1] = cmds.dist_extra[d_idx].astype(np.uint64)
+        nbits[d_pos + 1] = cmds.dist_extra_bits[d_idx]
+
+    if switches:
+        # Map per-category symbol indices to item-stream positions and
+        # insert the 3-item switch groups before them.
+        ins_at, ins_bits, ins_nbits = [], [], []
+        pos_of = {"lit": lit_pos, "cmd": offs, "dist": d_pos}
+        for cat, (at, sb, sn) in switches.items():
+            items = pos_of[cat][at]
+            ins_at.append(np.repeat(items, 3))
+            ins_bits.append(sb.reshape(-1))
+            ins_nbits.append(sn.reshape(-1))
+        ins_at = np.concatenate(ins_at)
+        ins_bits = np.concatenate(ins_bits)
+        ins_nbits = np.concatenate(ins_nbits)
+        order = np.argsort(ins_at, kind="stable")
+        bits = np.insert(bits, ins_at[order], ins_bits[order])
+        nbits = np.insert(nbits, ins_at[order], ins_nbits[order])
+
+    writer.append_packed(*nb.pack_bits(bits, nbits))

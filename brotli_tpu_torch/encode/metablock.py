@@ -1,14 +1,21 @@
 """Metablock decisions made on the host: literal context modeling, the
 host half of block splitting and the distance parameters.
 
-A copy of the path's part of brotli_tpu/encode/metablock.py.  Context
-modeling mirrors the reference's static-map decision tree
-(ChooseContextMode UTF8 detection, DecideOverLiteralContextModeling,
+A copy of brotli_tpu/encode/metablock.py.  Context modeling mirrors
+the reference's static-map decision tree (ChooseContextMode UTF8
+detection, DecideOverLiteralContextModeling,
 ShouldUseComplexStaticContextMap) with the same entropy thresholds and
 the same three static maps.  The block-split helpers (run hysteresis,
 header-cost merge, run-length encoding) finish what the device Lloyd
 loop in ops/split.py starts.  choose_distance_params is the optimal
 parser's per-metablock NPOSTFIX/NDIRECT search.
+
+The pure-Python metablock planner: split_symbols (chunked entropy
+clustering with Lloyd iterations), cluster_context_histograms (the
+q10+ dynamic context maps) and build_meta_block, whose MetaBlockPlan
+bitstream.store_meta_block serializes.  It plans every metablock the
+native store refuses (bitstream.store_meta_block_auto), as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from ..core.bitio import BitWriter
 from ..core.huffman import (build_huffman_lengths, code_bit_cost,
                             optimize_counts_for_rle)
 from ..core.prefix import write_prefix_code
+from .bitstream import extract_literals
 from .params import DistanceParams
 
 # Static literal context maps (reference encode.rs:1724-1800).
@@ -161,7 +169,7 @@ def _should_use_complex_map(data: np.ndarray, start: int, length: int):
 
 
 # ---------------------------------------------------------------------------
-# Block splitting: chunked entropy clustering (host half)
+# Block splitting: chunked entropy clustering
 # ---------------------------------------------------------------------------
 
 
@@ -191,6 +199,11 @@ SPLIT_PARAMS = {
                      header_cost=600.0),
 }
 MIN_LENGTH_FOR_SPLITTING = 128
+
+
+def _entropy_cost(hist: np.ndarray) -> float:
+    """Approximate bits to code `hist` with its own prefix code."""
+    return shannon_entropy(hist)
 
 
 def _entropy_rows(M: np.ndarray) -> np.ndarray:
@@ -225,6 +238,79 @@ def _merge_types(assign: np.ndarray, hist: np.ndarray, k: int,
         C_ = np.delete(C_, b, axis=0)
         ids = np.delete(ids, b)
     return assign
+
+
+def split_symbols(syms: np.ndarray, alphabet_size: int, category: str,
+                  iters: int = 3, max_types: int | None = None
+                  ) -> BlockSplit:
+    """Entropy-cluster a symbol stream into block types.
+
+    Lloyd iterations: cost[chunk, type] = -hist_chunk · log2 p_type via
+    one matmul; assignment hysteresis merges short runs (stand-in for the
+    reference's switch-cost Viterbi, block_splitter.rs FindBlocks :223).
+
+    max_types caps the cluster count below the category default (the
+    literal store caps it at 256 // num_lit_ctx so block types x static
+    contexts fit the 256-tree wire limit)."""
+    p = SPLIT_PARAMS[category]
+    if max_types is not None:
+        p = dict(p, max_types=min(p["max_types"], max_types))
+    n = len(syms)
+    if n < MIN_LENGTH_FOR_SPLITTING:
+        return BlockSplit.trivial(n)
+    chunk = p["chunk"]
+    nch = (n + chunk - 1) // chunk
+    pad = nch * chunk - n
+    padded = np.concatenate([syms, np.full(pad, -1, dtype=syms.dtype)])
+    chunk_id = np.repeat(np.arange(nch), chunk)
+    valid = padded >= 0
+    flat = chunk_id[valid] * alphabet_size + padded[valid]
+    hist = np.bincount(flat, minlength=nch * alphabet_size) \
+        .reshape(nch, alphabet_size).astype(np.float64)
+
+    k = int(min(p["max_types"], max(1, nch // 3), 256))
+    if k <= 1:
+        return BlockSplit.trivial(n)
+
+    # init centroids from evenly spaced chunk groups
+    seeds = np.linspace(0, nch, k + 1).astype(np.int64)
+    cent = np.stack([hist[seeds[j]:max(seeds[j] + 1, seeds[j + 1])].sum(0)
+                     for j in range(k)])
+
+    assign = None
+    for _ in range(iters):
+        tot = cent.sum(axis=1, keepdims=True) + alphabet_size * 0.25
+        logp = np.log2((cent + 0.25) / tot)            # [k, alphabet]
+        cost = -(hist @ logp.T)                        # [nch, k]  (MXU shape)
+        # amortized switch cost discourages fragmentation
+        cost += p["switch_cost"] / max(1, chunk // 16)
+        new_assign = cost.argmin(axis=1)
+        new_assign = _hysteresis(new_assign, cost, p["min_run"])
+        if assign is not None and np.array_equal(new_assign, assign):
+            break
+        assign = new_assign
+        cent = np.zeros((k, alphabet_size))
+        np.add.at(cent, assign, hist)
+        # retire empty clusters (they keep their centroid; harmless)
+
+    # agglomerative merge: only keep types that pay for their header
+    assign = _merge_types(assign, hist, k, p["switch_cost"],
+                          p["header_cost"])
+
+    # compress type ids to used ones, first-appearance order with the
+    # first block as type 0
+    used, first_pos = np.unique(assign, return_index=True)
+    order = used[np.argsort(first_pos)]
+    remap = np.zeros(k, dtype=np.int64)
+    remap[order] = np.arange(len(order))
+    assign = remap[assign]
+    num_types = len(order)
+    if num_types == 1:
+        return BlockSplit.trivial(n)
+
+    types = np.repeat(assign, chunk)[:n]
+    blocks = _runs(types)
+    return BlockSplit(num_types, types, blocks)
 
 
 def _hysteresis(assign: np.ndarray, cost: np.ndarray, min_run: int):
@@ -266,6 +352,76 @@ def _runs(types: np.ndarray):
     starts = np.concatenate([[0], edges])
     ends = np.concatenate([edges, [n]])
     return [(int(types[s]), int(e - s)) for s, e in zip(starts, ends)]
+
+
+# ---------------------------------------------------------------------------
+# Context clustering
+# ---------------------------------------------------------------------------
+
+
+def cluster_context_histograms(bucket_hist: np.ndarray, max_trees: int,
+                               header_cost: float):
+    """Cluster per-(block type x context) histograms into trees
+    (reference BrotliClusterHistograms, src/enc/cluster.rs:360): k-means
+    reduction to max_trees followed by greedy pairwise merging while a
+    merge saves more than the per-tree description cost.
+
+    Returns (assign[buckets] -> tree id, tree_hists[ntrees, alphabet]).
+    """
+    nb, alpha = bucket_hist.shape
+    totals = bucket_hist.sum(axis=1)
+    used = np.nonzero(totals > 0)[0]
+    if len(used) == 0:
+        return np.zeros(nb, dtype=np.int64), np.zeros((1, alpha),
+                                                      dtype=np.int64)
+    hist = bucket_hist[used].astype(np.float64)
+
+    k = int(min(max_trees, len(used)))
+    # k-means initialization: largest buckets as seeds
+    seeds = np.argsort(-totals[used])[:k]
+    cent = hist[seeds].copy()
+    assign = None
+    for _ in range(6):
+        tot = cent.sum(axis=1, keepdims=True) + alpha * 0.25
+        logp = np.log2((cent + 0.25) / tot)
+        cost = -(hist @ logp.T)
+        new_assign = cost.argmin(axis=1)
+        if assign is not None and np.array_equal(new_assign, assign):
+            break
+        assign = new_assign
+        cent = np.zeros((k, alpha))
+        np.add.at(cent, assign, hist)
+
+    # greedy pairwise merge with header-cost gating
+    alive = sorted(set(assign.tolist()))
+    cost_of = {t: shannon_entropy(cent[t]) for t in alive}
+    merged = True
+    while merged and len(alive) > 1:
+        merged = False
+        best_delta, best_pair = 0.0, None
+        for ii in range(len(alive)):
+            for jj in range(ii + 1, len(alive)):
+                a, b = alive[ii], alive[jj]
+                d = (shannon_entropy(cent[a] + cent[b])
+                     - cost_of[a] - cost_of[b] - header_cost)
+                if d < best_delta:
+                    best_delta, best_pair = d, (a, b)
+        if best_pair:
+            a, b = best_pair
+            cent[a] += cent[b]
+            cost_of[a] = shannon_entropy(cent[a])
+            alive.remove(b)
+            assign = np.where(assign == b, a, assign)
+            merged = True
+
+    remap = {t: i for i, t in enumerate(sorted(set(assign.tolist())))}
+    ntrees = len(remap)
+    out_assign = np.zeros(nb, dtype=np.int64)
+    out_assign[used] = np.array([remap[t] for t in assign])
+    tree_hists = np.zeros((ntrees, alpha), dtype=np.int64)
+    np.add.at(tree_hists, out_assign[used],
+              bucket_hist[used])
+    return out_assign, tree_hists
 
 
 _DIST_LANE_POOL = None
@@ -347,3 +503,213 @@ def choose_distance_params(distances: np.ndarray, copy_mask: np.ndarray,
             best = lb
     return DistanceParams(npostfix=best[1], ndirect=best[2],
                           large_window=large_window)
+
+
+# ---------------------------------------------------------------------------
+# Metablock plan: the full optimization pipeline
+# ---------------------------------------------------------------------------
+
+
+class MetaBlockPlan:
+    """Everything bitstream.store_meta_block needs to serialize one
+    optimized metablock."""
+    __slots__ = (
+        "mlen", "dist_params", "context_mode", "cmds", "literals",
+        "lit_ntypes", "cmd_ntypes", "dist_ntypes",
+        "lit_switch", "cmd_switch", "dist_switch",
+        "ntrees_l", "cmap_l", "ntrees_d", "cmap_d",
+        "lit_lengths", "cmd_lengths", "dist_lengths",
+        "lit_tree", "cmd_tree", "dist_tree",
+    )
+
+
+def _safe(hist):
+    if hist.sum() == 0:
+        hist = hist.copy()
+        hist[0] = 1
+    return hist
+
+
+def build_meta_block(full: np.ndarray, start: int, mlen: int,
+                     cmds, dist_params, quality: int, size_hint: int,
+                     mode: int = 0, enable_splits: bool = True,
+                     num_lit_ctx=None, lit_static_map=None) -> MetaBlockPlan:
+    """Optimize one metablock: block splits + context modeling +
+    per-tree Huffman codes (reference BrotliBuildMetaBlockGreedy,
+    metablock.rs:1022, with the static-context-map path of
+    WriteMetaBlockInternal, encode.rs:2026-2111)."""
+    def _lengths(h):
+        return build_huffman_lengths(optimize_counts_for_rle(_safe(h)))
+
+    plan = MetaBlockPlan()
+    plan.mlen = mlen
+    plan.dist_params = dist_params
+    plan.cmds = cmds
+
+    literals = extract_literals(full, start, cmds.insert_len,
+                                cmds.copy_advance)
+    plan.literals = literals
+    n_lit = len(literals)
+
+    context_mode = choose_context_mode(full[start:start + mlen],
+                                       quality, mode)
+    plan.context_mode = context_mode
+
+    # ---- literal contexts (vectorized p1/p2 gather) ----
+    lit_abs = _literal_positions(cmds, start)
+    p1 = np.where(lit_abs >= 1, full[np.maximum(lit_abs - 1, 0)], 0)
+    p2 = np.where(lit_abs >= 2, full[np.maximum(lit_abs - 2, 0)], 0)
+    ctx = (C.CONTEXT_LUT0[context_mode][p1]
+           | C.CONTEXT_LUT1[context_mode][p2]).astype(np.int64)
+
+    # ---- static context map decision ----
+    if num_lit_ctx is None:
+        if context_mode == C.CONTEXT_UTF8:
+            num_lit_ctx, lit_static_map = choose_literal_context_map(
+                full, start, mlen, quality, size_hint)
+        else:
+            num_lit_ctx, lit_static_map = 1, np.zeros(64, dtype=np.int64)
+
+    # ---- block splits ----
+    dist_mask = (cmds.copy_len > 0) & ~C.CMD_IMPLICIT_DIST0[cmds.cmd_sym]
+    dist_syms = cmds.dist_code[dist_mask]
+    if enable_splits:
+        lit_split = split_symbols(literals.astype(np.int64), 256, "literal",
+                                  max_types=256 // max(1, int(num_lit_ctx)))
+        cmd_split = split_symbols(cmds.cmd_sym, 704, "command")
+        dist_split = split_symbols(dist_syms, dist_params.alphabet_size,
+                                   "distance")
+    else:
+        lit_split = BlockSplit.trivial(n_lit)
+        cmd_split = BlockSplit.trivial(len(cmds))
+        dist_split = BlockSplit.trivial(len(dist_syms))
+
+    # cap total literal trees at 256
+    while lit_split.num_types * num_lit_ctx > 256:
+        num_lit_ctx, lit_static_map = 1, np.zeros(64, dtype=np.int64)
+
+    plan.lit_ntypes = lit_split.num_types
+    plan.cmd_ntypes = cmd_split.num_types
+    plan.dist_ntypes = dist_split.num_types
+    plan.lit_switch = plan_block_switches(lit_split) \
+        if lit_split.num_types >= 2 else None
+    plan.cmd_switch = plan_block_switches(cmd_split) \
+        if cmd_split.num_types >= 2 else None
+    plan.dist_switch = plan_block_switches(dist_split) \
+        if dist_split.num_types >= 2 else None
+
+    alpha_d = dist_params.alphabet_size
+    dynamic_ctx = quality >= 10 and n_lit > 512
+
+    if dynamic_ctx:
+        # ---- dynamic context maps: cluster per-(type, context)
+        # histograms (the q10+/BrotliBuildMetaBlock path,
+        # metablock.rs:133 + cluster.rs) ----
+        buckets_l = lit_split.types * 64 + ctx
+        bh = np.bincount(buckets_l * 256 + literals,
+                         minlength=lit_split.num_types * 64 * 256
+                         ).reshape(lit_split.num_types * 64, 256)
+        cmap_l, lit_h = cluster_context_histograms(
+            bh, max_trees=48, header_cost=300.0)
+        plan.ntrees_l = lit_h.shape[0]
+        plan.cmap_l = cmap_l
+        lit_tree = cmap_l[buckets_l]
+
+        dctx = C.distance_context_from_copy_len(
+            cmds.copy_len[dist_mask])
+        buckets_d = dist_split.types * 4 + dctx
+        bhd = np.bincount(buckets_d * alpha_d + dist_syms,
+                          minlength=dist_split.num_types * 4 * alpha_d
+                          ).reshape(dist_split.num_types * 4, alpha_d)
+        cmap_d, dist_h = cluster_context_histograms(
+            bhd, max_trees=8, header_cost=500.0)
+        plan.ntrees_d = dist_h.shape[0]
+        plan.cmap_d = cmap_d
+        plan.dist_tree = cmap_d[buckets_d]
+    else:
+        # ---- static context maps (q<10 greedy path) ----
+        ntrees_l = lit_split.num_types * num_lit_ctx
+        cmap_l = np.zeros(64 * lit_split.num_types, dtype=np.int64)
+        for t in range(lit_split.num_types):
+            cmap_l[t * 64:(t + 1) * 64] = \
+                t * num_lit_ctx + lit_static_map
+        plan.ntrees_l = ntrees_l
+        plan.cmap_l = cmap_l
+        lit_tree = lit_split.types * num_lit_ctx + lit_static_map[ctx] \
+            if n_lit else np.zeros(0, dtype=np.int64)
+        lit_h = np.bincount(lit_tree * 256 + literals,
+                            minlength=ntrees_l * 256
+                            ).reshape(ntrees_l, 256)
+
+        ntrees_d = dist_split.num_types
+        plan.ntrees_d = ntrees_d
+        plan.cmap_d = np.repeat(np.arange(ntrees_d, dtype=np.int64), 4)
+        plan.dist_tree = dist_split.types
+        dist_h = np.bincount(dist_split.types * alpha_d + dist_syms,
+                             minlength=ntrees_d * alpha_d
+                             ).reshape(ntrees_d, alpha_d)
+
+    plan.lit_tree = lit_tree
+    plan.cmd_tree = cmd_split.types
+    plan.lit_lengths = [_lengths(h) for h in lit_h]
+
+    nct = cmd_split.num_types
+    cmd_h = np.bincount(cmd_split.types * 704 + cmds.cmd_sym,
+                        minlength=nct * 704).reshape(nct, 704)
+    plan.cmd_lengths = [_lengths(h) for h in cmd_h]
+    plan.dist_lengths = [_lengths(h) for h in dist_h]
+    return plan
+
+
+def _literal_positions(cmds, start: int) -> np.ndarray:
+    """Absolute position in the input of each literal (vectorized)."""
+    n = len(cmds)
+    step = cmds.insert_len + cmds.copy_advance
+    cmd_start = np.zeros(n, dtype=np.int64)
+    np.cumsum(step[:-1], out=cmd_start[1:])
+    cmd_start += start
+    total = int(cmds.insert_len.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    owner = np.repeat(np.arange(n), cmds.insert_len)
+    run_off = np.arange(total) - np.repeat(
+        np.concatenate([[0], np.cumsum(cmds.insert_len)[:-1]]),
+        cmds.insert_len)
+    return cmd_start[owner] + run_off
+
+
+def plan_block_switches(split: BlockSplit):
+    """Turn a BlockSplit into wire data: first block length + per-switch
+    (type_symbol, len_code, len_extra_val, len_extra_bits) and the
+    histograms for the type/length prefix codes (RFC 6)."""
+    blocks = split.blocks
+    first_len = blocks[0][1]
+    ntypes = split.num_types
+    type_syms = []
+    len_codes = [int(C.get_block_length_code(first_len))]
+    len_extra = []
+    cur, prev = 0, 1
+    for t, ln in blocks[1:]:
+        if t == prev:
+            s = 0
+        elif t == (cur + 1) % ntypes:
+            s = 1
+        else:
+            s = t + 2
+        type_syms.append(s)
+        lc = int(C.get_block_length_code(ln))
+        len_codes.append(lc)
+        len_extra.append((int(ln - C.BLOCK_LEN_BASE[lc]),
+                          int(C.BLOCK_LEN_EXTRA[lc])))
+        prev, cur = cur, t
+    type_hist = np.bincount(np.array(type_syms, dtype=np.int64),
+                            minlength=ntypes + 2) if type_syms else \
+        np.zeros(ntypes + 2, dtype=np.int64)
+    len_hist = np.bincount(np.array(len_codes, dtype=np.int64), minlength=26)
+    # switch positions in symbol units: cumulative block lengths
+    switch_at = np.cumsum([ln for _, ln in blocks[:-1]])
+    return dict(first_len=first_len, type_syms=type_syms,
+                len_codes=len_codes[1:], len_extra=len_extra,
+                first_len_code=len_codes[0] if len_codes else 0,
+                type_hist=type_hist, len_hist=len_hist,
+                switch_at=switch_at)

@@ -550,7 +550,9 @@ def extend_caps(data, dict_len, pos, dist, lens):
 def worst_case_bits(mlen: int) -> int:
     """A buffer under which the metablock stores refuse no block of
     mlen bytes: 16 bits a byte (their refusal test charges 16 bits for
-    each literal of the next insert) and 2^17 bits of headers."""
+    each literal of the next insert) and 2^17 bits of headers.  The
+    tests store refused blocks natively on it and hold the pure-Python
+    planner's bytes (bitstream.store_meta_block_auto's route) to them."""
     return 16 * int(mlen) + (1 << 17)
 
 

@@ -1,10 +1,17 @@
 """The IR side channel of the host encoder.
 
-The port's copy of the encoder half of brotli_tpu/utils/ir.py: the IR
-vocabulary (PredictionMode, BlockSwitch{Literal,Command,Distance},
-Copy, Dict, Literal; reference interface.rs Command enum) and
-ir_from_commands, which turns one metablock's resolved commands into
-that IR for compress()'s metablock_callback (reference LogMetaBlock).
+A copy of brotli_tpu/utils/ir.py: the IR vocabulary (PredictionMode,
+BlockSwitch{Literal,Command,Distance}, Copy, Dict, Literal; reference
+interface.rs Command enum); ir_from_commands, which turns one
+metablock's resolved commands into that IR for compress()'s
+metablock_callback (reference LogMetaBlock); and the CLI's text dump
+(-i; reference bin/util.rs:85 write_one):
+
+    prediction <mode> lcontextmap ... dcontextmap ...
+    ltype <t> <stride> / ctype <t> / dtype <t>
+    copy <n> from <d>
+    dict <n> word <size>,<id> <hex> func <f> <hex>
+    insert <n> <hex>
 """
 
 from __future__ import annotations
@@ -68,6 +75,9 @@ class Literal:
     # :378-420 FeatureFlagSliceType): caller-provided per-literal
     # probabilities riding the IR for downstream recompression research
     probs: bytes | None = None
+
+
+MODE_NAMES = {0: "lsb6", 1: "msb6", 2: "utf8", 3: "sign"}
 
 
 def _switch_types(switch_plan, ntypes):
@@ -152,3 +162,67 @@ def ir_from_commands(data: np.ndarray, start: int, cmds, plan=None,
             pos += av
             abs_pos += av
     return out
+
+
+def format_ir(commands) -> str:
+    """Reference write_one text format (bin/util.rs:85)."""
+    lines = []
+    dic = get_dictionary()
+    for c in commands:
+        if isinstance(c, PredictionMode):
+            lcm = "".join(f" {v}" for v in c.literal_context_map)
+            dcm = "".join(f" {v}" for v in c.distance_context_map)
+            extra = (f" cmspeedinc {c.cm_speed[0]} cmspeedmax "
+                     f"{c.cm_speed[1]} stspeedinc {c.stride_speed[0]} "
+                     f"stspeedmax {c.stride_speed[1]}")
+            if c.prior_bitmask is not None:
+                extra += f" priormask {c.prior_bitmask:#06x}"
+            if c.mix_weight is not None:
+                extra += f" mixweight {c.mix_weight}"
+            lines.append(f"prediction {MODE_NAMES.get(c.mode, '?')} "
+                         f"lcontextmap{lcm} dcontextmap{dcm}{extra}")
+        elif isinstance(c, BlockSwitchLiteral):
+            lines.append(f"ltype {c.block_type} {c.stride}")
+        elif isinstance(c, BlockSwitchCommand):
+            lines.append(f"ctype {c.block_type}")
+        elif isinstance(c, BlockSwitchDistance):
+            lines.append(f"dtype {c.block_type}")
+        elif isinstance(c, Copy):
+            lines.append(f"copy {c.num_bytes} from {c.distance}")
+        elif isinstance(c, Dict):
+            raw = dic.word(c.word_size, c.word_id)
+            xform = dic.transformed(c.word_size, c.word_id, c.transform)
+            lines.append(
+                f"dict {c.final_size} word {c.word_size},{c.word_id} "
+                f"{raw.hex()} func {c.transform} {xform.hex()}")
+        elif isinstance(c, Literal):
+            kind = "rndins" if c.high_entropy else "insert"
+            lines.append(f"{kind} {len(c.data)} {c.data.hex()}")
+    return "\n".join(lines) + "\n"
+
+
+def dump_ir(data: bytes, quality: int = 9, lgwin: int = 22,
+            cm_speed=None, stride_speed=None,
+            prior_bitmask=None, mix_weight=None) -> str:
+    """Encode `data` through the live metablock callback (quality
+    capped at 9) and return the IR dump (CLI -i); "" for empty input.
+    The leading PredictionMode record is a default one carrying only
+    the speed and prior metadata (-speed= / -findspeed / -findprior)."""
+    from ..encode.encoder import compress
+
+    if len(data) == 0:
+        return ""
+    blocks = []
+    compress(bytes(data), quality=min(quality, 9), lgwin=lgwin,
+             metablock_callback=lambda ir, region: blocks.append(ir))
+    pm = PredictionMode()
+    if cm_speed is not None:
+        pm.cm_speed = tuple(cm_speed)
+    if stride_speed is not None:
+        pm.stride_speed = tuple(stride_speed)
+    pm.prior_bitmask = prior_bitmask
+    pm.mix_weight = mix_weight
+    out = [pm]
+    for ir in blocks:
+        out.extend(ir)
+    return format_ir(out)

@@ -137,6 +137,26 @@ noise, slowly varying integers, random bytes), then:
                 and ratio for each under the card line; every stream
                 decodes back through libbrotlidec and decompress;
                 prints the phase's wall
+  tools         the tools (no kernel; the card machine's CPU): the
+                port's brotli CLI: -c -q9 on the corpus's first 8 MiB
+                file to file (one python3 -m subprocess) and back by
+                decompression, -c -q5 -j8 -validate on the whole corpus,
+                -c -q11 on its first MiB, -b3 -c -q5 on 8 MiB (its own
+                timing line checked), -i, -findprior, -findspeed and
+                -advstride on 1 MiB, all but the first through main(argv)
+                in this process; catbrotli (one python3 -m subprocess)
+                on four -catable parts of 2 MiB, decoded against their
+                join; billing.account on a 512 KiB q9 stream of the
+                repo's text, its bits within 7 of 8 x the stream's
+                length; the route of the blocks the native store
+                refuses: compress q5 at lgblock 16 with the metablock
+                callback on 2 MiB of low-entropy bytes, every block
+                planned by the pure-Python planner (counted); MB/s and
+                ratio for each under the card line; every stream decodes
+                back through libbrotlidec and decompress.  The host
+                encoder, streaming and tools phases each print their
+                wall and the metablocks the native stores refused in
+                them (Refusals)
   cpu check     each path on the card equals the same path with
                 device="cpu" byte for byte on a 1 MiB prefix
                 (compress_mesh at q5 and q9 over 8 shards), and
@@ -230,6 +250,11 @@ HOST_ZOPFLI_MIB = 8         # the optimal parser on the corpus's head
 STREAM_Q9_MIB = 8           # the streaming phase's q9, io and FFI inputs
 STREAM_FLUSH_MIB = 4        # the streaming Compressor flushes this often
 ZOPFLI_BATCH = 64           # compress_batch at q11: slices of 64 KiB
+TOOLS_MIB = 8               # the tools phase's -q9 / -b3 input (the head)
+TOOLS_SMALL_MIB = 1         # its -q11, -i, -findprior, -findspeed, -advstride
+TOOLS_PART_MIB = 2          # its four -catable parts
+TOOLS_BILL_KIB = 512        # billing.account's q9 stream
+TOOLS_REFUSED_MIB = 2       # the low-entropy input the native store refuses
 MESH_ROW = 8 << 20          # a shard row: a 4 MiB halo and 4 MiB shard
 # compress_mesh's folds by quality (fold_cuda.config_name)
 MESH_FOLDS = {5: ["fold_k1p3_f32b0"],
@@ -1127,6 +1152,234 @@ def streaming_phase(corpus, card):
     log(f"streaming round trips: ok through {name} and decompress")
 
 
+class Refusals:
+    """Counts, while installed, the metablocks the port's native stores
+    refuse (native_bridge.store_metablock: the pure-Python planner then
+    plans the block; native_bridge.encode_metablock: the fused one-shot
+    loop then stores it uncompressed, compress_mesh resolves and stores
+    it in Python) and the pure-Python planner's calls
+    (encode/metablock.build_meta_block), by wrapping the three module
+    attributes.  Calls inside the C API's work pool do not pass through
+    them and are not counted."""
+
+    def __init__(self):
+        import threading
+        from brotli_tpu_torch import native_bridge as nb
+        from brotli_tpu_torch.encode import metablock as mb
+        self._lock = threading.Lock()
+        self.reset()
+
+        def counted(mod, name, key, refused_if_none):
+            real = getattr(mod, name)
+
+            def call(*a, **k):
+                res = real(*a, **k)
+                with self._lock:
+                    self.counts[key] += 1
+                    if refused_if_none and res is None:
+                        self.counts[key + "_refused"] += 1
+                return res
+            setattr(mod, name, call)
+
+        counted(nb, "store_metablock", "store", True)
+        counted(nb, "encode_metablock", "encode", True)
+        counted(mb, "build_meta_block", "planned", False)
+
+    def reset(self):
+        with self._lock:
+            self.counts = dict(store=0, store_refused=0, encode=0,
+                               encode_refused=0, planned=0)
+
+    def line(self, what: str) -> str:
+        c = self.counts
+        return (f"{what} refused blocks: store_metablock {c['store_refused']}"
+                f" of {c['store']} (planned in Python: {c['planned']}), "
+                f"encode_metablock {c['encode_refused']} of {c['encode']}")
+
+
+def _cli(main, argv, stdin=b""):
+    """main(argv) of a CLI in this process, its standard streams swapped
+    for in-memory ones: (exit code, stdout bytes, stderr text)."""
+    out = io.BytesIO()
+    so = io.TextIOWrapper(out, encoding="utf-8")
+    se = io.StringIO()
+    saved = sys.stdin, sys.stdout, sys.stderr
+    sys.stdin = io.TextIOWrapper(io.BytesIO(stdin), encoding="utf-8")
+    sys.stdout, sys.stderr = so, se
+    try:
+        rc = main(argv)
+        so.flush()
+    finally:
+        sys.stdin, sys.stdout, sys.stderr = saved
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit {rc}: {se.getvalue()[:500]}")
+    return rc, out.getvalue(), se.getvalue()
+
+
+def tools_phase(corpus, card, refusals):
+    """The tools on this machine's CPU (no kernel): the port's brotli CLI
+    (-c -q9 on the corpus's first TOOLS_MIB MiB file to file in a
+    python3 -m subprocess, and back by decompression; -c -q5 -j8
+    -validate on the whole corpus; -c -q11 on TOOLS_SMALL_MIB MiB;
+    -b3 -c -q5 on TOOLS_MIB MiB; -i, -findprior, -findspeed and
+    -advstride on TOOLS_SMALL_MIB MiB), catbrotli (a python3 -m
+    subprocess) on four -catable parts of TOOLS_PART_MIB MiB, decoded
+    against their join; billing.account on a TOOLS_BILL_KIB KiB q9
+    stream, its bits within 7 of 8 x the stream's length; and the route
+    of the blocks the native store refuses: compress q5 at lgblock 16
+    with the metablock callback (the unfused loop) on TOOLS_REFUSED_MIB
+    MiB of low-entropy bytes, the pure-Python planner's calls counted.
+    Every stream decodes back through libbrotlidec and the port's
+    decompress.  Prints MB/s (host wall clock, one call) and ratio for
+    each under the card line."""
+    import tempfile
+
+    import numpy as np
+
+    from brotli_tpu_torch import compress, decompress
+    from brotli_tpu_torch.cli import brotli_cli
+    from brotli_tpu_torch.utils import billing
+    name, decode = _decoder()
+    log(f"tools phase on {card}")
+
+    def round_trip(out, data, what):
+        _round_trip(name, decode, out, data, f"tools {what}")
+        if decompress(out) != data:
+            raise AssertionError(f"tools {what}: the port's decompress "
+                                 "differs")
+
+    def rate(what, n_in, n_out, dt):
+        log(f"tools {what}: {n_in / dt / 1e6:.2f} MB/s, ratio "
+            f"{n_in / n_out:.4f} ({n_in} -> {n_out} bytes, {dt:.3f} s)")
+
+    def timed(call):
+        t0 = time.perf_counter()
+        res = call()
+        return res, time.perf_counter() - t0
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    head = corpus[:TOOLS_MIB << 20]
+    small = corpus[:TOOLS_SMALL_MIB << 20]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        def path(n):
+            return os.path.join(tmp, n)
+
+        for n, data in (("head", head), ("corpus", corpus),
+                        ("small", small)):
+            with open(path(n), "wb") as f:
+                f.write(data)
+
+        def read(n):
+            with open(path(n), "rb") as f:
+                return f.read()
+
+        _, dt = timed(lambda: subprocess.run(
+            [sys.executable, "-m", "brotli_tpu_torch.cli.brotli_cli", "-c",
+             "-q9", path("head"), path("head.br")], check=True, env=env,
+            cwd=ROOT, timeout=600))
+        out = read("head.br")
+        rate(f"python3 -m brotli_cli -c -q9 ({TOOLS_MIB} MiB, the "
+             "process's start included)", len(head), len(out), dt)
+        round_trip(out, head, "brotli_cli -c -q9")
+        _, dt = timed(lambda: _cli(brotli_cli.main,
+                                   [path("head.br"), path("head.back")]))
+        if read("head.back") != head:
+            raise AssertionError("brotli_cli decompression differs")
+        log(f"tools brotli_cli decompress ({TOOLS_MIB} MiB): "
+            f"{len(head) / dt / 1e6:.2f} MB/s ({dt:.3f} s)")
+        (_, _, err), dt = timed(lambda: _cli(brotli_cli.main, [
+            "-c", "-q5", "-j8", "-validate", path("corpus"),
+            path("corpus.br")]))
+        if err != "validation OK\n":
+            raise AssertionError(f"brotli_cli -j8 -validate: {err!r}")
+        out = read("corpus.br")
+        rate(f"brotli_cli -c -q5 -j8 -validate ({len(corpus) >> 20} MiB)",
+             len(corpus), len(out), dt)
+        round_trip(out, corpus, "brotli_cli -j8")
+        _, dt = timed(lambda: _cli(brotli_cli.main, [
+            "-c", "-q11", path("small"), path("small.br")]))
+        out = read("small.br")
+        rate(f"brotli_cli -c -q11 ({TOOLS_SMALL_MIB} MiB)", len(small),
+             len(out), dt)
+        round_trip(out, small, "brotli_cli -q11")
+        (_, _, err), dt = timed(lambda: _cli(brotli_cli.main, [
+            "-b3", "-c", "-q5", path("head"), path("head5.br")]))
+        out = read("head5.br")
+        m = re.fullmatch(r"(\d+) bytes in (\d+\.\d{3})s = (\d+\.\d) "
+                         r"MB/s\n", err)
+        if m is None or int(m.group(1)) != len(head):
+            raise AssertionError(f"brotli_cli -b3: {err!r}")
+        rate(f"brotli_cli -b3 -c -q5 ({TOOLS_MIB} MiB, 3 calls; its own "
+             f"line: {err.strip()})", 3 * len(head), 3 * len(out), dt)
+        round_trip(out, head, "brotli_cli -b3")
+        (_, ir, _), dt = timed(lambda: _cli(brotli_cli.main,
+                                            ["-i", path("small")]))
+        lines = ir.decode().splitlines()
+        if not lines[0].startswith("prediction lsb6 ") or len(lines) < 100:
+            raise AssertionError("brotli_cli -i: no IR dump")
+        log(f"tools brotli_cli -i ({TOOLS_SMALL_MIB} MiB): "
+            f"{len(small) / dt / 1e6:.2f} MB/s, {len(lines)} records, "
+            f"{len(ir)} bytes of text ({dt:.3f} s)")
+        for flag in ("-findprior", "-findspeed", "-advstride"):
+            (_, _, err), dt = timed(lambda: _cli(brotli_cli.main, [
+                flag, "-q5", path("small"), path("flag.br")]))
+            out = read("flag.br")
+            rate(f"brotli_cli {flag} -q5 ({TOOLS_SMALL_MIB} MiB; "
+                 f"{err.splitlines()[0][:120]})", len(small), len(out), dt)
+            round_trip(out, small, f"brotli_cli {flag}")
+
+        part = TOOLS_PART_MIB << 20
+        parts = []
+        for k in range(4):
+            with open(path(f"part{k}"), "wb") as f:
+                f.write(corpus[k * part:(k + 1) * part])
+            _cli(brotli_cli.main, ["-c", "-q5", "-catable", path(f"part{k}"),
+                                   path(f"part{k}.br")])
+            parts.append(path(f"part{k}.br"))
+        _, dt = timed(lambda: subprocess.run(
+            [sys.executable, "-m", "brotli_tpu_torch.cli.catbrotli_cli",
+             path("joined.br"), *parts], check=True, env=env, cwd=ROOT,
+            timeout=600))
+        joined = read("joined.br")
+        log(f"tools python3 -m catbrotli_cli, four -catable parts of "
+            f"{TOOLS_PART_MIB} MiB: {4 * part / dt / 1e6:.2f} MB/s of "
+            f"input, {len(joined)} bytes ({dt:.3f} s, the process's start "
+            "included)")
+        round_trip(joined, corpus[:4 * part], "catbrotli join")
+
+    # billing reads the pure-Python decoder: the repo's text, a quarter
+    # of the corpus in
+    unit = len(corpus) >> 5
+    text = corpus[6 * unit:6 * unit + (TOOLS_BILL_KIB << 10)]
+    stream = compress(text, quality=9)
+    acc, dt = timed(lambda: billing.account(stream))
+    total = sum(acc["bits"].values())
+    if acc["output_len"] != len(text) or \
+            not 8 * len(stream) - 7 <= total <= 8 * len(stream):
+        raise AssertionError(f"billing: {total} bits for {len(stream)} "
+                             f"bytes, output {acc['output_len']}")
+    top = sorted(acc["bits"].items(), key=lambda kv: -kv[1])[:4]
+    log(f"tools billing.account q9 ({TOOLS_BILL_KIB} KiB -> {len(stream)} "
+        f"bytes): {len(text) / dt / 1e6:.3f} MB/s ({dt:.3f} s), {total} "
+        f"bits, " + ", ".join(f"{k} {v / total:.3f}" for k, v in top))
+
+    low = np.random.default_rng(SEED).integers(
+        0, 180, TOOLS_REFUSED_MIB << 20, dtype=np.uint8).tobytes()
+    before = dict(refusals.counts)
+    out, dt = timed(lambda: compress(low, quality=5, lgblock=16,
+                                     metablock_callback=lambda *a: None))
+    planned = refusals.counts["planned"] - before["planned"]
+    refused = refusals.counts["store_refused"] - before["store_refused"]
+    if planned == 0 or planned != refused:
+        raise AssertionError(f"refused-block route: {refused} refused, "
+                             f"{planned} planned in Python")
+    rate(f"compress q5 lgblock 16, low-entropy ({TOOLS_REFUSED_MIB} MiB; "
+         f"{refused} blocks refused, {planned} planned in Python)",
+         len(low), len(out), dt)
+    round_trip(out, low, "refused-block route")
+    log(f"tools round trips: ok through {name} and decompress")
+
+
 def cpu_check(corpus, dev):
     from brotli_tpu_torch import compress_fast, compress_gpu, compress_mesh
     prefix = corpus[:1 << 20]
@@ -1758,9 +2011,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["mesh"] = mesh_phase(corpus, dev)
     log(f"mesh phase wall: {time.perf_counter() - t0:.1f} s")
+    refusals = Refusals()
     t0 = time.perf_counter()
     host_encoder_phase(corpus, card)
     log(f"host encoder phase wall: {time.perf_counter() - t0:.1f} s")
+    log(refusals.line("host encoder phase"))
     t0 = time.perf_counter()
     ds_serving, ds_launches = decode_path_phase(corpus, dev, enc,
                                                 step_insns)
@@ -1768,9 +2023,16 @@ def main() -> int:
     t0 = time.perf_counter()
     optimal_parser_phase(corpus, card)
     log(f"optimal parser phase wall: {time.perf_counter() - t0:.1f} s")
+    refusals.reset()
     t0 = time.perf_counter()
     streaming_phase(corpus, card)
     log(f"streaming phase wall: {time.perf_counter() - t0:.1f} s")
+    log(refusals.line("streaming phase"))
+    refusals.reset()
+    t0 = time.perf_counter()
+    tools_phase(corpus, card, refusals)
+    log(f"tools phase wall: {time.perf_counter() - t0:.1f} s")
+    log(refusals.line("tools phase"))
     t0 = time.perf_counter()
     cpu_check(corpus, dev)
     decode_cpu_check(corpus, dev, enc)

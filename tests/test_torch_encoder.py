@@ -327,12 +327,25 @@ def test_multi_metablock_low_tiers_match_jax(quality, lgblock,
     _check(data, quality, dict(lgblock=lgblock, byte_align=True))
 
 
+def count_planner_calls(monkeypatch) -> list:
+    """Log each call of the port's pure-Python metablock planner."""
+    from brotli_tpu_torch.encode import metablock as M
+    calls = []
+    real = M.build_meta_block
+
+    def logged(*args, **kw):
+        calls.append(args[2])  # mlen
+        return real(*args, **kw)
+
+    monkeypatch.setattr(M, "build_meta_block", logged)
+    return calls
+
+
 @pytest.mark.parametrize("quality", [4, 5, 9])
 def test_refused_low_entropy_blocks_match_jax(quality, monkeypatch):
     """Metablocks of one long insert: the native store refuses them for
-    its buffer, the JAX package stores them through its pure-Python
-    planner, and the port's store_meta_block_auto through the native
-    planner on a buffer for the worst case; both keep them compressed."""
+    its buffer, and both packages plan and store them through their
+    pure-Python planners; both keep them compressed."""
     calls = []
     real = nb.store_metablock
 
@@ -342,20 +355,29 @@ def test_refused_low_entropy_blocks_match_jax(quality, monkeypatch):
         return res
 
     monkeypatch.setattr(nb, "store_metablock", logged)
+    planned = count_planner_calls(monkeypatch)
     data = low_entropy(300_000)
     got = _check(data, quality, dict(lgblock=16,
                                      metablock_callback=lambda *a: None))
     assert len(got) < len(data)
     assert (None, True) in calls
-    assert (nb.worst_case_bits(1 << 16), False) in calls
+    assert all(cap is None for cap, _ in calls)
+    assert len(planned) == sum(refused for _, refused in calls) > 0
 
 
 def test_store_refusal_stores_the_block_uncompressed(monkeypatch):
+    """Every native store refused, in both packages: each block goes
+    through the pure-Python planner and stays compressed (no block is
+    stored uncompressed), with the JAX package's bytes."""
     monkeypatch.setattr(nb, "store_metablock", lambda *a, **k: None)
+    monkeypatch.setattr(jnb, "store_metablock", lambda *a, **k: None)
+    planned = count_planner_calls(monkeypatch)
     data = phrases(150_000, seed=6)
-    out = compress(data, quality=5, lgblock=16,
-                   metablock_callback=lambda *a: None)
-    assert len(out) > len(data)
+    flags = dict(quality=5, lgblock=16, metablock_callback=lambda *a: None)
+    out = compress(data, **flags)
+    assert out == brotli_tpu.compress(data, **flags)
+    assert planned == [1 << 16, 1 << 16, 150_000 - 2 * (1 << 16)]
+    assert len(out) < len(data) // 2
     decodes(out, data)
 
 

@@ -134,8 +134,8 @@ def test_compress_mesh_keeps_refused_low_entropy_blocks_like_jax(monkeypatch):
     match): at lgblock 16 the native store refuses every full metablock
     for its long insert, and the JAX package's pure-Python store keeps
     it compressed.  At quality >= 4 the port's store_meta_block_auto
-    keeps the native store's bytes on a worst-case buffer, which must
-    equal the JAX package's."""
+    plans such a block with its own pure-Python planner, and the bytes
+    must equal the JAX package's."""
     calls = []
     real = nb.encode_metablock
 

@@ -20,8 +20,8 @@ import brotli_tpu
 from brotli_tpu_torch import compress_batch, compress_multi
 from brotli_tpu_torch import native_bridge as nb
 from brotli_tpu_torch.parallel import multi as M
-from .test_torch_encoder import (ROOT, decodes, dictionary_slice,
-                                 low_entropy, phrases)
+from .test_torch_encoder import (ROOT, count_planner_calls, decodes,
+                                 dictionary_slice, low_entropy, phrases)
 from .torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -57,8 +57,8 @@ def test_compress_multi_tiers_match_jax(quality):
 
 def test_shared_table_low_entropy_parts_match_jax(monkeypatch):
     """Parts of one long insert: the native store refuses them for its
-    buffer and keeps them compressed on a buffer for the worst case, as
-    the JAX package's pure-Python planner does."""
+    buffer, and the pure-Python planner keeps them compressed, as the
+    JAX package's does."""
     caps = []
     real = nb.store_metablock
 
@@ -67,11 +67,13 @@ def test_shared_table_low_entropy_parts_match_jax(monkeypatch):
         return real(*args, cap_bits=cap_bits, **kw)
 
     monkeypatch.setattr(nb, "store_metablock", logged)
+    planned = count_planner_calls(monkeypatch)
     data = low_entropy(200_000)
     got = _check(data, 2, quality=5, backend="serial",
                  favor_cpu_efficiency=True)
     assert len(got) < len(data)
-    assert [c is None for c in caps] == [True, False, True, False]
+    assert caps == [None, None]
+    assert len(planned) == 2
 
 
 def test_process_backend_matches_jax():

@@ -33,7 +33,12 @@ def test_import_pulls_in_no_jax_and_no_brotli_tpu():
         "brotli_tpu_torch.parallel.multi, brotli_tpu_torch.utils.ir, "
         "brotli_tpu_torch.encode.zopfli, brotli_tpu_torch.decode.batch, "
         "brotli_tpu_torch.decode.stream, brotli_tpu_torch.encode.streaming, "
-        "brotli_tpu_torch.io_wrappers, brotli_tpu_torch.ffi\n"
+        "brotli_tpu_torch.io_wrappers, brotli_tpu_torch.ffi, "
+        "brotli_tpu_torch.utils.analysis, brotli_tpu_torch.utils.billing, "
+        "brotli_tpu_torch.utils.prior, brotli_tpu_torch.cli.brotli_cli, "
+        "brotli_tpu_torch.cli.catbrotli_cli, "
+        "brotli_tpu_torch.encode.metablock, "
+        "brotli_tpu_torch.encode.bitstream\n"
         "from brotli_tpu_torch import *\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'brotli_tpu' or "
