@@ -8,7 +8,8 @@ lanes, and their symbol layer (command / literal / distance decode
 with extra bits and the distance ring) runs in one launch of the
 per-lane step kernel (ops/decode_gpu.py, csrc/decode_step.cu).  The
 host then replays each lane's (insert, copy, distance) commands over
-its literals (native LZ execution).  A multi-metablock stream decodes
+its literals (native LZ execution, or the Python loop where the runtime
+is not in use; every header walk is then the Python one).  A multi-metablock stream decodes
 over several device rounds: the device returns each lane's end bit and
 final distance ring, and the host walk resumes there.
 
@@ -27,6 +28,7 @@ import torch
 
 from ..core import constants as C
 from ..core.bitio import BitReader, NeedsMoreInput
+from ..core.dictionary import get_dictionary
 from ..core.prefix import read_prefix_code
 from ..device import resolve_device
 from ..ops.decode_gpu import PH_DONE, batch_decode_device
@@ -57,9 +59,10 @@ def _try_parse_stream(data: bytes):
     compressed metablock (the caller resumes it with
     _resume_parse_stream once the device reports that lane's end bit
     and final distance ring).  The native single-pass walk takes the
-    common case; the Python walk takes the resumable one."""
+    common case; the Python walk takes the resumable one, and every
+    case where the runtime is not in use."""
     from .. import native_bridge as nb
-    r = nb.parse_lane_header(data)
+    r = nb.parse_lane_header(data) if nb.available() else None
     if r is not None:
         meta, pre_segs, lit_len, cmd_len, dist_len = r
         segs = [("bytes", data[off:off + ln]) for off, ln in pre_segs]
@@ -167,13 +170,40 @@ def _reconstruct(lane: _Lane, prefix: bytes, lits: np.ndarray, nlit: int,
                  cmds: np.ndarray, ncmd: int) -> bytes:
     """The metablock's bytes from the device's literals and commands,
     over the stream's output so far (distances reach back across
-    metablocks; the device validated them against that length)."""
+    metablocks; the device validated them against that length): the
+    runtime's LZ execution, or the Python loop where it is not in
+    use."""
     from .. import native_bridge as nb
-    body = nb.lz_execute(prefix, lits[:nlit], cmds[:ncmd], ncmd,
-                         lane.window, lane.mlen)
-    if body is None:
+    if nb.available():
+        body = nb.lz_execute(prefix, lits[:nlit], cmds[:ncmd], ncmd,
+                             lane.window, lane.mlen)
+        if body is None:
+            raise BrotliDecodeError("device metablock length mismatch")
+        return body
+    out = bytearray(prefix)
+    p0 = len(prefix)
+    li = 0
+    for ins, cpy, dist in cmds[:ncmd].tolist():
+        if ins:
+            out += bytes(lits[li:li + ins])
+            li += ins
+        if cpy:
+            n = len(out)
+            max_dist = min(n, lane.window)
+            if dist > max_dist:
+                # a static-dictionary reference: the device checked the
+                # word id and advanced by the transform's output length
+                out += get_dictionary().resolve(cpy, dist - max_dist - 1)
+            elif dist <= 0:
+                raise BrotliDecodeError("bad distance from device")
+            elif dist >= cpy:
+                out += out[n - dist:n - dist + cpy]
+            else:
+                for _ in range(cpy):
+                    out.append(out[-dist])
+    if len(out) - p0 != lane.mlen:
         raise BrotliDecodeError("device metablock length mismatch")
-    return body
+    return bytes(out[p0:])
 
 
 def lane_arrays(lanes, dev: torch.device):

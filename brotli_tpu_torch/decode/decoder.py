@@ -443,7 +443,7 @@ def decompress(data, custom_dictionary: bytes = b"",
     """One-shot decompress with the native decoder (trailing garbage
     after the last block is ignored).  Raises NeedsMoreInput for a
     truncated stream and BrotliDecodeError for a corrupt one; where the
-    native runtime does not build, Decoder decodes instead."""
+    native runtime is not in use, Decoder decodes instead."""
     from .. import native_bridge as nb
     if not nb.available():
         return Decoder(custom_dictionary, large_window).decompress(data)

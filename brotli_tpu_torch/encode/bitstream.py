@@ -9,9 +9,11 @@ metablock of a MetaBlockPlan (block-switch codes, context maps, trees
 per literal context, per command block and per distance context;
 store_meta_block), and store_meta_block_auto, which runs the native
 planner and falls back to the pure-Python one on the blocks the native
-store refuses.  The symbol stream is built as (bits, nbits) item arrays
-in stream order, block switches inserted where they fire, and packed by
-the native runtime.
+store refuses (and on every block where the runtime is not in use).
+The symbol stream is built as (bits, nbits) item arrays in stream
+order, block switches inserted where they fire, and packed by
+pack_bits: the native packer, or its numpy form where the runtime is
+not in use.
 """
 
 from __future__ import annotations
@@ -24,6 +26,34 @@ from ..core.bitio import BitWriter
 from ..core.huffman import build_huffman_lengths
 from ..core.prefix import encoding_table, write_prefix_code
 from .command import CommandArrays, command_extra_bits
+
+
+def pack_bits(bits: np.ndarray, nbits: np.ndarray):
+    """Pack (bits[i], nbits[i]) items LSB-first into uint64 words;
+    returns (words, total_bits).  nbits may be 0 (the item is skipped);
+    each item fits 32 bits, so a shifted value spans at most 2 words.
+    The native packer where the runtime is in use, else this numpy
+    scatter (ops/bitpack.pack_bits_u32 is its device form)."""
+    if nb.available():
+        return nb.pack_bits(bits, nbits)
+    bits = np.asarray(bits, dtype=np.uint64)
+    nbits = np.asarray(nbits, dtype=np.int64)
+    total = int(nbits.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.uint64), 0
+    pos = np.zeros(len(nbits), dtype=np.int64)
+    np.cumsum(nbits[:-1], out=pos[1:])
+    word = pos >> 6
+    shift = (pos & 63).astype(np.uint64)
+    # +2: a trailing zero-bit item (a one-symbol code) sits at pos ==
+    # total and still scatters into word + 1
+    words = np.zeros(total // 64 + 2, dtype=np.uint64)
+    lo = bits << shift
+    hi = np.where(shift > 0, bits >> (np.uint64(64) - shift), 0).astype(
+        np.uint64)
+    np.bitwise_or.at(words, word, lo)
+    np.bitwise_or.at(words, word + 1, hi)
+    return words, total
 
 
 def write_stream_header(writer: BitWriter, lgwin: int,
@@ -358,9 +388,14 @@ def store_meta_block_auto(writer: BitWriter, full, start: int, mlen: int,
     charges 16 bits for each literal of the next insert), the
     pure-Python planner and store (metablock.build_meta_block +
     store_meta_block) plan and write it instead, as the JAX package
-    does."""
-    from .metablock import (build_meta_block, choose_context_mode,
-                            choose_literal_context_map)
+    does; where the runtime is not in use, they plan and write every
+    block."""
+    from .metablock import choose_context_mode, choose_literal_context_map
+    if not nb.available():
+        _store_planned(writer, full, start, mlen, cmds, dist_params,
+                       quality, size_hint, mode, is_last, enable_splits,
+                       disable_literal_context_modeling)
+        return
     region = full[start:start + mlen]
     ctx_mode = choose_context_mode(region, quality, mode)
     if disable_literal_context_modeling:
@@ -383,6 +418,16 @@ def store_meta_block_auto(writer: BitWriter, full, start: int, mlen: int,
     if res is not None:
         writer.append_packed(*res)
         return
+    _store_planned(writer, full, start, mlen, cmds, dist_params, quality,
+                   size_hint, mode, is_last, enable_splits,
+                   disable_literal_context_modeling)
+
+
+def _store_planned(writer, full, start, mlen, cmds, dist_params, quality,
+                   size_hint, mode, is_last, enable_splits,
+                   disable_literal_context_modeling):
+    """One metablock through the pure-Python planner and store."""
+    from .metablock import build_meta_block
     plan = build_meta_block(full, start, mlen, cmds, dist_params,
                             quality, size_hint, mode=mode,
                             enable_splits=enable_splits,
@@ -547,4 +592,4 @@ def emit_command_stream(writer: BitWriter, cmds: CommandArrays,
         bits = np.insert(bits, ins_at[order], ins_bits[order])
         nbits = np.insert(nbits, ins_at[order], ins_nbits[order])
 
-    writer.append_packed(*nb.pack_bits(bits, nbits))
+    writer.append_packed(*pack_bits(bits, nbits))

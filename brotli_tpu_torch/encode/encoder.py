@@ -24,6 +24,13 @@ loop, which searches each metablock's NPOSTFIX/NDIRECT there: q9_5
 (quality 10, or 12 for the deeper -q9.5y tier) and plain q10 parse with
 one cost-model iteration, q10_deep with two, q11 with up to Q11_ITERS.
 Below quality 10, q9_5 and q10_deep change nothing.
+
+Where the runtime is not in use (native_bridge.available() false),
+every tier below 10 runs the match finder and the greedy walk over the
+whole input (the numpy and Python forms of encode/match.py; no
+fragment tier, no session) into the unfused loop, as the JAX package
+does; quality 10 and above runs the optimal parser's pure-Python
+routes.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ..core.bitio import BitWriter
 from ..utils.ir import ir_from_commands
 from . import bitstream as bs
 from .command import resolve_commands
+from .match import find_best_matches, greedy_parse
 from .metablock import (choose_context_mode, choose_distance_params,
                         choose_literal_context_map)
 from .params import EncoderParams
@@ -379,9 +387,17 @@ def compress_with_params(data: np.ndarray, params: EncoderParams,
     # does not decode where a distance tree is a simple prefix code
     whole = (dlen == 0 and start == 0 and metablock_callback is None
              and params.stream_offset == 0 and not params.large_window)
+    native = nb.available()
     if params.quality >= 10:
         segments = _zopfli_segments(full, params, boundaries, dlen, start,
                                     cache)
+    elif not native:
+        bl, bd, bsc, isd, bw = find_best_matches(
+            full, params.window_size, dict_len=dlen,
+            literal_byte_score=params.literal_byte_score,
+            use_dictionary=not params.catable, **knobs)
+        segments = greedy_parse(full, bl, bd, bsc, boundaries, dlen, start,
+                                tuple(cache), isd, params.window_size, bw)
     elif params.quality <= 1 and dlen == 0:
         # q0/q1 fragment tier (reference BrotliCompressFragmentFast):
         # one direct-mapped table, greedy one-pass, miss-skip stride, no
@@ -419,8 +435,8 @@ def compress_with_params(data: np.ndarray, params: EncoderParams,
         segments = _serial_segments(full, params, boundaries, dlen, start,
                                     tuple(cache), knobs)
 
-    if (metablock_callback is None and params.stream_offset == 0
-            and params.quality < 10):
+    if (native and metablock_callback is None
+            and params.stream_offset == 0 and params.quality < 10):
         _store_fused(w, data, full, dlen, start, segments, boundaries,
                      params, cache)
     else:

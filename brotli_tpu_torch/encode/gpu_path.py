@@ -18,6 +18,15 @@ sub-blocks); the host only assembles commands and stores them, at a
 ratio cost (copies cap at 24 bytes, parses cut at sub-block seams, no
 static dictionary).
 
+Where the host runtime is not in use (native_bridge.available()
+false) the device leg is unchanged, and the host leg takes the JAX
+package's no-runtime route (tpu_path.py:413-432): no extension of
+capped lengths, the Python greedy walk, resolve_commands and the
+pure-Python planner and store (store_meta_block_auto), a block larger
+than 8 * len + 40 bits stored uncompressed.  The matcher then always
+inverts on the device: the host inversion is the runtime's.  The JAX
+package calls it unguarded there and raises (ROADMAP queue 3).
+
 Pipelining: up to three dispatches are in flight on one CUDA stream.
 A dispatch copies its row from pinned memory, runs the matcher and
 copies the results back into pinned buffers, all non-blocking, and
@@ -43,6 +52,7 @@ from ..ops.matching import floor_log2
 from ..ops.parse import committed_parse
 from ..ops.split import split_symbols_device
 from . import bitstream as bs
+from .command import resolve_commands
 from .match import greedy_parse
 from .metablock import choose_context_mode, choose_literal_context_map
 from .params import EncoderParams
@@ -180,7 +190,9 @@ def _host_parse(sorted_out, row, halo, real, dlen, region, knobs,
         # short match may be longer, so len == 8 is a candidate too
         # (extending a genuine 8 is a no-op byte compare)
         capped |= bl == 8
-    if capped.any():
+    # without the runtime, capped lengths stay capped (as in the JAX
+    # package)
+    if capped.any() and nb.available():
         pos_c = np.nonzero(capped)[0]
         bl[pos_c] = nb.extend_caps(row[:halo + real], 0, pos_c + halo,
                                    bd[pos_c], bl[pos_c])
@@ -261,6 +273,21 @@ class _Pipeline:
         return [o.numpy() for o in outs]
 
 
+def _store_py(w, region, dlen, real, seg, params, n, is_last, cache):
+    """One span through the pure-Python serializer (no runtime): the
+    commands resolved, then store_meta_block_or_raw at quality >= 4.
+    Returns the distance cache after the span."""
+    ins, cps, dst, adv = seg
+    cmds, new_cache = resolve_commands(
+        ins, cps, dst, params.dist, advance=adv, initial_cache=cache,
+        pos_offset=dlen, window_size=params.window_size)
+    if bs.store_meta_block_or_raw(w, region, dlen, real, cmds, params.dist,
+                                  max(params.quality, 4), n, params.mode,
+                                  is_last):
+        return new_cache
+    return cache
+
+
 def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                  span: int | None = None, stats: dict | None = None,
                  max_device: bool = False, device=None) -> bytes:
@@ -315,7 +342,10 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                                       k=knobs["k"],
                                       rounds=max(knobs["rounds"], 6))
     else:
-        device_invert = _pick_device_invert(dev)
+        # the host inversion is the runtime's: without it, invert on
+        # the device
+        device_invert = (_pick_device_invert(dev) if nb.available()
+                         else True)
 
         def run(j, row_d):
             return _match_dense(row_d, int(min_pos[j]), params.window_size,
@@ -353,6 +383,10 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                                knobs, params.window_size, cache)
         ins, cps, dst, adv = segs[0]
         is_last = j == len(starts) - 1
+        if not nb.available():
+            cache = _store_py(w, region, dlen, real, segs[0], params, n,
+                              is_last, cache)
+            continue
         ctx_mode = choose_context_mode(row[halo:halo + real],
                                        params.quality, params.mode)
         if ctx_mode == C.CONTEXT_UTF8:

@@ -1,6 +1,6 @@
 """Encoder-side static dictionary matching (vectorized, host).
 
-A copy of brotli_tpu/encode/static_dict.py's native paths.  The greedy
+A copy of brotli_tpu/encode/static_dict.py.  The greedy
 tiers' index is built once from the RFC dictionary and probed for all
 positions in one pass: hash the 4-byte prefix at every position,
 gather the bucket's candidate words, verify with a masked [n, 24] byte
@@ -10,9 +10,13 @@ compare.  A reference encodes as distance = max_distance + 1 + word_id
 The optimal parser takes every transform: collect_dict_matches returns
 all dictionary matches of a region through the runtime's predecessor
 search over the sorted index of every (word x transform) output
-(sorted_dict_index).  expanded_dict_index is the same set of outputs
-hashed by their 4-byte prefix, for the runtime's hashed collector
-(native_bridge.collect_dict).
+(sorted_dict_index), or, where the runtime is not in use, the same
+search in numpy (an exact-key probe of the index for every output
+length).  expanded_dict_index is the same set of outputs hashed by
+their 4-byte prefix, for the runtime's hashed collector
+(native_bridge.collect_dict) and the numpy builder of the sorted index.
+collect_dict_matches_identity is the identity and OmitLast matches of
+the greedy tiers' index as sparse candidates.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from .. import native_bridge as nb
 from ..core.dictionary import OMIT_LAST_1, apply_transform, get_dictionary
 
 HASH_MUL32 = 0x1E35A7BD
@@ -218,22 +223,133 @@ def sorted_dict_index():
     """Every unique transformed output, sorted by its 0-padded bytes and
     then its length, each kept at its cheapest encoding (the least word
     id): (sorted_bytes[m, 38], out_len, wire, wid), row-aligned.  The
-    runtime builds it (zopfli_hq.cpp build_sorted_index); the JAX
-    package's numpy builder, its fallback, is not ported."""
-    from .. import native_bridge as nb
-    return nb.sorted_dict_index_native()
+    runtime builds it (zopfli_hq.cpp build_sorted_index) where it is in
+    use; the numpy builder below gives the same rows."""
+    if nb.available():
+        return nb.sorted_dict_index_native()
+    entry_bytes, out_len, wire, wid, _ = expanded_dict_index()
+    kv = _sort_keys(entry_bytes, out_len)
+    order = np.lexsort((wid, kv))
+    kv_s = kv[order]
+    first = np.ones(len(kv), bool)
+    first[1:] = kv_s[1:] != kv_s[:-1]
+    sel = order[first]  # the least-wid entry of a key, still key-sorted
+    return (np.ascontiguousarray(entry_bytes[sel]), out_len[sel].copy(),
+            wire[sel].copy(), wid[sel].copy())
+
+
+def _sort_keys(entry_bytes: np.ndarray, out_len: np.ndarray) -> np.ndarray:
+    """The index's sort keys as byte strings: the 0-padded output, then
+    its length (which keeps the key free of a trailing NUL, so the
+    S-dtype's memcmp order is exact)."""
+    keys = np.zeros((len(out_len), EXT_MAX_OUT + 1), np.uint8)
+    keys[:, :EXT_MAX_OUT] = entry_bytes
+    keys[:, EXT_MAX_OUT] = out_len
+    return np.ascontiguousarray(keys).view(f"S{EXT_MAX_OUT + 1}").ravel()
 
 
 def collect_dict_matches(data: np.ndarray, dict_len: int, window_size: int,
-                         progress=None, out=None):
+                         progress=None, out=None, chunk: int = 1 << 15):
     """Every static-dictionary match (every transform) of data[dict_len:]
     as sparse candidates for the optimal parser: (pos, out_len,
     pseudo_dist, wire), pos relative to the region's start, sorted by
     position.  The DP prices each against window matches and literals
     (reference hq.rs:707).  progress and out: see
-    native_bridge.collect_dict_sorted (None where `out` overflows)."""
-    from .. import native_bridge as nb
-    if len(data) - dict_len < 4:
+    native_bridge.collect_dict_sorted (None where `out` overflows); the
+    numpy search, where the runtime is not in use, takes neither and
+    probes `chunk` positions at a time."""
+    n = len(data)
+    if n - dict_len < 4:
         return (np.zeros(0, np.int64),) * 4
-    return nb.collect_dict_sorted(data, dict_len, window_size,
-                                  progress=progress, out=out)
+    if nb.available():
+        return nb.collect_dict_sorted(data, dict_len, window_size,
+                                      progress=progress, out=out)
+    sb, s_len, s_wire, s_wid = sorted_dict_index()
+    m = len(s_len)
+    kv = _sort_keys(sb, s_len)
+    pad = np.concatenate([data, np.zeros(EXT_MAX_OUT, np.uint8)])
+    out_p, out_l, out_d, out_w = [], [], [], []
+    for c0 in range(dict_len, n - 3, chunk):
+        idx = np.arange(c0, min(c0 + chunk, n - 3), dtype=np.int64)
+        win = pad[idx[:, None] + np.arange(EXT_MAX_OUT)[None, :]]
+        q = np.zeros((len(idx), EXT_MAX_OUT + 1), np.uint8)
+        for length in np.unique(s_len).tolist():
+            # the window's first `length` bytes and the length byte form
+            # a whole key iff an output with those bytes exists (the
+            # keys are unique)
+            q[:, :length] = win[:, :length]
+            q[:, length:EXT_MAX_OUT] = 0
+            q[:, EXT_MAX_OUT] = length
+            qv = np.ascontiguousarray(q).view(
+                f"S{EXT_MAX_OUT + 1}").ravel()
+            at = np.searchsorted(kv, qv)
+            ok = (at < m) & (kv[np.minimum(at, m - 1)] == qv) \
+                & (idx + length <= n)
+            if not ok.any():
+                continue
+            sel = np.nonzero(ok)[0]
+            e = at[sel]
+            pos = idx[sel]
+            out_p.append(pos - dict_len)
+            out_l.append(np.full(len(sel), length, np.int64))
+            out_d.append(np.minimum(pos, window_size) + 1 + s_wid[e])
+            out_w.append(s_wire[e])
+    if not out_p:
+        return (np.zeros(0, np.int64),) * 4
+    res = tuple(np.concatenate(a) for a in (out_p, out_l, out_d, out_w))
+    order = np.argsort(res[0], kind="stable")
+    return tuple(a[order] for a in res)
+
+
+def collect_dict_matches_identity(data: np.ndarray, dict_len: int,
+                                  window_size: int, chunk: int = 1 << 20):
+    """The identity and OmitLast matches of the greedy tiers' index
+    (dict_index) as sparse candidates: (pos, out_len, pseudo_dist,
+    wire), pos relative to the region's start.  Unlike
+    add_dictionary_matches it keeps every match, not only one that
+    beats the window's: the optimal parser prices both (reference
+    hq.rs:1237)."""
+    word_bytes, word_len, word_idx, table, size_bits = dict_index()
+    omit_ids = omit_last_transform_ids()
+    n = len(data)
+    if n < 4:
+        return (np.zeros(0, np.int64),) * 4
+    d32 = np.concatenate([data, np.zeros(4, np.uint8)]).astype(np.uint32)
+    v = d32[:n] | (d32[1:n + 1] << 8) | (d32[2:n + 2] << 16) \
+        | (d32[3:n + 3] << 24)
+    h = ((v * np.uint32(HASH_MUL32)) >> np.uint32(32 - DICT_HASH_BITS)) \
+        .astype(np.int64)
+    pad = np.concatenate([data, np.zeros(MAX_WORD_LEN, np.uint8)])
+    span = np.arange(MAX_WORD_LEN)
+    out_p, out_l, out_d, out_w = [], [], [], []
+    for c0 in range(dict_len, n, chunk):
+        c1 = min(c0 + chunk, n)
+        idx = np.arange(c0, c1, dtype=np.int64)
+        window = pad[idx[:, None] + span[None, :]]
+        for slot in range(DICT_SLOTS):
+            e = table[h[c0:c1], slot]
+            hit = e >= 0
+            if not hit.any():
+                continue
+            ee = np.maximum(e, 0)
+            wl = word_len[ee]
+            cmp_ok = np.cumprod(window == word_bytes[ee], axis=1, dtype=bool)
+            mlen = np.minimum(np.minimum(cmp_ok.sum(axis=1), wl), n - idx)
+            omit = wl - mlen
+            valid_t = (omit == 0) | ((omit <= 9) &
+                                     (omit_ids[np.minimum(omit, 9)] >= 0))
+            ok = hit & (mlen >= 4) & valid_t
+            if not ok.any():
+                continue
+            sel = np.nonzero(ok)[0]
+            pos = idx[sel]
+            m = mlen[sel]
+            ls = wl[sel]
+            wid = (omit_ids[ls - m] << size_bits[ls]) + word_idx[ee[sel]]
+            out_p.append(pos - dict_len)
+            out_l.append(m)
+            out_d.append(np.minimum(pos, window_size) + 1 + wid)
+            out_w.append(ls)
+    if not out_p:
+        return (np.zeros(0, np.int64),) * 4
+    return tuple(np.concatenate(a) for a in (out_p, out_l, out_d, out_w))

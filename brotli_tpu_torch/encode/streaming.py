@@ -18,10 +18,10 @@ metadata metablock (OPERATION_EMIT_METADATA), finish() ends the stream
 Routes by quality: below 10 one native parse session spans the chunks
 (its buffer compacts back to the window about every 8 chunks); at 10
 and above the optimal parser runs once a chunk against the carried
-context.  Where native_bridge.available() is false, the JAX package's
-fallback route runs the match finder and the greedy parse once a
-chunk; in the port both are native calls too, so that route raises
-where the runtime does not build.
+context.  Where native_bridge.available() is false, there is no
+session: below 10 the match finder and the greedy walk (their numpy
+and Python forms) run once a chunk over the carried context and the
+chunk, as in the JAX package.
 """
 
 from __future__ import annotations

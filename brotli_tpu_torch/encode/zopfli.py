@@ -1,8 +1,7 @@
 """The optimal parser of qualities 9.5 to 11: a Zopfli-style shortest
 path over positions, priced by a fitted cost model.
 
-The port's copy of brotli_tpu/encode/zopfli.py, its native paths only:
-where the runtime does not build, the bridge raises.  Reference:
+The port's copy of brotli_tpu/encode/zopfli.py.  Reference:
 BrotliCreateZopfliBackwardReferences / BrotliCreateHqZopfliBackward
 References (src/enc/backward_references/hq.rs:984, :1237), a DP whose
 edge costs come from a cost model (literal costs from a sliding-window
@@ -30,9 +29,16 @@ dictionary, runs the collection and the DP overlapped
 
 The JAX package reads a few tuning knobs from the environment; here
 they are the constants below at the reference's defaults.
-_prepare_edges, _price_edges and zopfli_parse are the edge-list form of
-the DP, which the JAX package runs where its runtime does not build;
-here they run on the runtime's edge-list DP (zopfli_dp_cache).
+
+Where the runtime is not in use (native_bridge.available() false), the
+JAX package's no-runtime routes run: the collection takes three numpy
+top-K searches (k = 64, k = 12, and a k8 = 24 long table with the
+greedy tiers' dictionary probe; no deep rings and no all-transform
+dictionary matches) and extends capped lengths in Python, the literal
+costs come from a composite-key search (_sliding_key_counts), and each
+iteration prices the edge list (_prepare_edges, _price_edges) for the
+pure-Python DP (zopfli_parse) and its walk back (_backtrack).  The
+overlapped tier is not entered.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from .. import native_bridge as nb
 from ..core import constants as C
 from .bitstream import extract_literals
 from .command import resolve_commands
-from .match import MATCH_CAP, find_best_matches, greedy_parse
+from .match import MATCH_CAP, extend_match, find_best_matches, greedy_parse
 from .metablock import choose_context_mode
 
 #: candidate rows a position of the early cost-model iterations visits
@@ -76,6 +82,25 @@ _CMD_SYM_LAST = np.zeros((24, 24), dtype=np.int64)
 for _i in range(8):
     _CMD_SYM_LAST[_i, :16] = C.combine_length_codes(
         np.full(16, _i), np.arange(16), np.ones(16, bool))
+# the pure-Python DP's lookups (list indexing beats numpy in its loop)
+_INS_CODE_L = _INS_CODE.tolist()
+_INS_EXTRA_L = C.INSERT_EXTRA.tolist()
+_CMD_SYM_L = _CMD_SYM.tolist()
+
+
+def _sliding_key_counts(keys: np.ndarray, queries: np.ndarray,
+                        lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """count_i = #{j in [lo_i, hi_i] : keys[j] == queries[i]}, by one
+    composite-key sort (key * n + pos ascends within a key)."""
+    n = len(keys)
+    order = np.argsort(keys, kind="stable")
+    composite = keys[order].astype(np.int64) * n + order
+    base = queries.astype(np.int64) * n
+    h = np.searchsorted(composite, base + np.minimum(hi, n - 1),
+                        side="right")
+    lo_at = np.searchsorted(composite, base + np.maximum(lo, 0),
+                            side="left")
+    return h - lo_at
 
 
 def estimate_literal_costs(data: np.ndarray):
@@ -89,7 +114,10 @@ def estimate_literal_costs(data: np.ndarray):
     utf8 = len(data.tobytes().decode("utf-8", errors="ignore").encode()) \
         > 0.75 * n
     if not utf8:
-        return nb.est_lit(data, None, 2000, False, 0.029)
+        if nb.available():
+            return nb.est_lit(data, None, 2000, False, 0.029)
+        d = data.astype(np.int64)
+        return _window_costs(d, None, n, 2000, 0.029)
     # context class of position i from bytes i-1 (c) and i-2 (last):
     # ASCII or continuation 0, multibyte lead 1, interior 2
     # (literal_cost.rs:8), clamped by the sampled multi-byte level
@@ -101,8 +129,35 @@ def estimate_literal_costs(data: np.ndarray):
     max_utf8 = 0 if counts[1] + counts[2] < 25 else (
         1 if counts[2] < 500 else 2)
     cls = np.minimum(cls2, max_utf8)
-    return nb.est_lit(data, None if max_utf8 == 0 else cls.astype(np.uint8),
-                      495, True, 0.02905)
+    if nb.available():
+        return nb.est_lit(data, None if max_utf8 == 0
+                          else cls.astype(np.uint8), 495, True, 0.02905)
+    if max_utf8 == 0:
+        d = data.astype(np.int64)
+        cost = _window_costs(d, None, n, 495, 0.02905)
+    else:
+        key = cls * 256 + data
+        cost = _window_costs(key, cls, n, 495, 0.02905)
+    # the first 2000 positions ramp up (literal_cost.rs)
+    idx = np.arange(n)
+    return cost + (idx < 2000) * (
+        0.7 - (2000 - np.minimum(idx, 2000)) / 2000.0 * 0.35)
+
+
+def _window_costs(keys, cls, n, half, bias):
+    """The bit cost of each position's key within its +-half window:
+    log2(window) - log2(count) + bias, halved toward 1 below 1 bit.
+    cls: count the window over the position's class alone (None: the
+    whole window)."""
+    idx = np.arange(n)
+    lo, hi = idx - half + 1, idx + half
+    cnt = _sliding_key_counts(keys, keys, lo, hi)
+    if cls is None:
+        w = np.minimum(hi, n - 1) - np.maximum(lo, 0) + 1
+    else:
+        w = _sliding_key_counts(cls, cls, lo, hi)
+    cost = np.log2(np.maximum(w, 1)) - np.log2(np.maximum(cnt, 1)) + bias
+    return np.where(cost < 1.0, cost * 0.5 + 0.5, cost)
 
 
 def _set_cost(h, literal=False):
@@ -282,32 +337,141 @@ def zopfli_parse(n: int, lcp: np.ndarray, cost_cmd, edges):
     costs, the data, the dictionary length, the window and the initial
     distance cache): cost[j] is the least bits of a parse of [0, j)
     that ends at a copy's end; insert runs close through the running
-    minimum start.  Returns (ins, wire, dist, advance)."""
+    minimum start.  Returns (ins, wire, dist, advance).  The runtime's
+    DP (zopfli_dp_cache, which also probes the distance cache) where it
+    is in use, else the pure-Python one, which takes the edges alone."""
     (edge_off, e_len, e_wire, e_dist, e_ccode, e_base, e_dcost,
      cost_dist_short, data, dict_len, window_size, initial_cache) = edges
-    cost, prev_start, prev_len, prev_wire, prev_dist = nb.zopfli_dp_cache(
-        n, lcp, cost_cmd, cost_dist_short, edge_off, e_len, e_wire, e_dist,
-        e_ccode, e_base, e_dcost, _INS_CODE, C.INSERT_EXTRA,
-        _CMD_SYM.reshape(-1), _CMD_SYM_LAST.reshape(-1), data, dict_len,
-        window_size, initial_cache)
-    return _finish_parse(n, lcp, cost, prev_start, prev_len, prev_wire,
-                         prev_dist)
+    if nb.available():
+        cost, prev_start, prev_len, prev_wire, prev_dist = \
+            nb.zopfli_dp_cache(
+                n, lcp, cost_cmd, cost_dist_short, edge_off, e_len, e_wire,
+                e_dist, e_ccode, e_base, e_dcost, _INS_CODE,
+                C.INSERT_EXTRA, _CMD_SYM.reshape(-1),
+                _CMD_SYM_LAST.reshape(-1), data, dict_len, window_size,
+                initial_cache)
+        return _finish_parse(n, lcp, cost, prev_start, prev_len,
+                             prev_wire, prev_dist)
+    inf = float("inf")
+    cost = [inf] * (n + 1)
+    cost[0] = 0.0
+    prev_start = [0] * (n + 1)
+    prev_len = [0] * (n + 1)
+    prev_wire = [0] * (n + 1)
+    prev_dist = [0] * (n + 1)
+    lcp_l = lcp.tolist()
+    cost_cmd_l = cost_cmd.tolist()
+    eo = edge_off.tolist()
+    el, ew, ed, ec, eb = (e_len.tolist(), e_wire.tolist(), e_dist.tolist(),
+                          e_ccode.tolist(), e_base.tolist())
+    best_adj = inf
+    best_u = 0
+    for p in range(n):
+        c = cost[p]
+        if c < inf:
+            adj = c - lcp_l[p]
+            if adj < best_adj:
+                best_adj = adj
+                best_u = p
+        e0, e1 = eo[p], eo[p + 1]
+        if e0 == e1:
+            continue
+        lp = lcp_l[p]
+        for e in range(e0, e1):
+            ll = el[e]
+            tgt = p + ll
+            if tgt > n:
+                continue
+            ccode = ec[e]
+            base = eb[e]
+            ct = cost[tgt]
+            # start 1: the running-minimum u (maybe a long insert)
+            il = p - best_u
+            ic = _INS_CODE_L[il] if il < 65536 else 23
+            t = (best_adj + lp + base + _INS_EXTRA_L[ic]
+                 + cost_cmd_l[_CMD_SYM_L[ic][ccode]])
+            if t < ct:
+                cost[tgt] = ct = t
+                prev_start[tgt] = best_u
+                prev_len[tgt] = ll
+                prev_wire[tgt] = ew[e]
+                prev_dist[tgt] = ed[e]
+            # start 2: no insert, from p
+            if cost[p] < inf and best_u != p:
+                t = cost[p] + base + cost_cmd_l[_CMD_SYM_L[0][ccode]]
+                if t < ct:
+                    cost[tgt] = t
+                    prev_start[tgt] = p
+                    prev_len[tgt] = ll
+                    prev_wire[tgt] = ew[e]
+                    prev_dist[tgt] = ed[e]
+    return _backtrack(n, lcp_l, cost, prev_start, prev_len, prev_wire,
+                      prev_dist, best_adj, best_u)
 
 
 def _finish_parse(n, lcp, cost, prev_start, prev_len, prev_wire,
                   prev_dist):
     """The cheapest close of the DP and the walk back (shared by the
-    edge-list and candidate DPs)."""
-    return nb.zopfli_backtrack(n, lcp, cost, prev_start, prev_len,
-                               prev_wire, prev_dist)
+    edge-list and candidate DPs): the runtime's, or numpy's scan for
+    the close and _backtrack."""
+    if nb.available():
+        return nb.zopfli_backtrack(n, lcp, cost, prev_start, prev_len,
+                                   prev_wire, prev_dist)
+    cost = np.asarray(cost)
+    lcp = np.asarray(lcp)
+    adj = np.where(cost[:n] < 1e29, cost[:n] - lcp[:n], np.inf)
+    best_u = int(np.argmin(adj)) if n else 0
+    best_adj = float(adj[best_u]) if n else float("inf")
+    return _backtrack(n, lcp, cost, prev_start, prev_len, prev_wire,
+                      prev_dist, best_adj, best_u)
+
+
+def _backtrack(n, lcp, cost, prev_start, prev_len, prev_wire, prev_dist,
+               best_adj, best_u):
+    """The walk back from n: a final literal run from best_u where that
+    closes the stream cheaper (or no copy reaches n), then each copy
+    back to its start.  Returns lists (ins, wire, dist, advance)."""
+    ins, cps, dst, adv = [], [], [], []
+    pos = n
+    if cost[n] >= 1e29 or best_adj + float(lcp[n]) < cost[n]:
+        ins.append(n - best_u)
+        cps.append(0)
+        dst.append(0)
+        adv.append(0)
+        pos = best_u
+    while pos > 0:
+        u = int(prev_start[pos])
+        ln = int(prev_len[pos])
+        ins.append(pos - ln - u)
+        cps.append(int(prev_wire[pos]))
+        dst.append(int(prev_dist[pos]))
+        adv.append(ln)
+        pos = u
+    for a in (ins, cps, dst, adv):
+        a.reverse()
+    return ins, cps, dst, adv
 
 
 def _collect_candidates(full, window_size, dict_len, literal_byte_score,
                         use_dictionary):
-    """The single-iteration tier's candidate rows [4, n]: a k=32 deep
-    hash-4 table's best and runner-up (another distance), and a
-    shallow hash-8 table with the dictionary; the searches run side by
-    side (ctypes drops the GIL) and back off over matchless runs."""
+    """The candidate rows [3, n]: where the runtime is in use, a k=32
+    deep hash-4 table's best and runner-up (another distance) and a
+    shallow hash-8 table with the dictionary, the searches side by side
+    (ctypes drops the GIL) and backing off over matchless runs; else
+    the best of three numpy searches, one after another (k=64, k=12 and
+    a k8=24 long table with the dictionary)."""
+    if not nb.available():
+        rows = []
+        for kw in (dict(k=64, bucket_bits=15, k8=0, use_dictionary=False),
+                   dict(k=12, bucket_bits=14, k8=0, use_dictionary=False),
+                   dict(k=1, bucket_bits=17, k8=24,
+                        use_dictionary=use_dictionary)):
+            bl, bd, _, isd, bw = find_best_matches(
+                full, window_size, dict_len=dict_len,
+                literal_byte_score=literal_byte_score, **kw)
+            rows.append((bl, bd, isd, bw))
+        return tuple(np.stack([r[k] for r in rows]) for k in range(4))
+
     def deep():
         return nb.find_best_matches(
             full, window_size, dict_len=dict_len,
@@ -344,12 +508,15 @@ def zopfli_collect(full: np.ndarray, params, dict_len: int = 0, iters=None):
         iters = Q11_ITERS if params.quality >= 11 else 2
     use_prior = params.quality >= 10 and iters > 1
     cm = cd = fut_cd = None
-    if use_prior:
+    native = nb.available()
+    # without the runtime: the numpy rows alone (no deep rings, no
+    # all-transform dictionary matches), as the JAX package
+    if use_prior and native:
         # the refining tiers take every window candidate from the deep
         # rings (k=96 ring + k8=48 long ring, increasing lengths)
         cm = nb.collect_matches(full, window_size, dict_len=dict_len, k=96,
                                 k8=48, max_per_pos=16)
-    if params.quality >= 10 and not params.catable:
+    if params.quality >= 10 and not params.catable and native:
         from .static_dict import collect_dict_matches, sorted_dict_index
         sorted_dict_index()
         if use_prior:
@@ -369,12 +536,23 @@ def zopfli_collect(full: np.ndarray, params, dict_len: int = 0, iters=None):
         # the span's start dominates), which keeps the work O(n)
         hits = np.argwhere((cand_lens >= MATCH_CAP) & ~cand_isdict)
         hits = hits[np.argsort(hits[:, 1], kind="stable")]
-        if len(hits):
+        if len(hits) and native:
             hc, hp = hits[:, 0], hits[:, 1]
             ext = nb.extend_caps(full, dict_len, hp, cand_dists[hc, hp],
                                  cand_lens[hc, hp])
             cand_lens[hc, hp] = ext
             cand_wire[hc, hp] = ext
+        else:
+            last_end = -1
+            for ci, p in hits.tolist():
+                if p < last_end - 32:
+                    continue
+                d = int(cand_dists[ci, p])
+                ext = extend_match(full, dict_len + p - d, dict_len + p,
+                                   int(cand_lens[ci, p]), n - p)
+                cand_lens[ci, p] = ext
+                cand_wire[ci, p] = ext
+                last_end = max(last_end, p + ext)
     else:
         cand_lens = np.zeros((0, n), dtype=np.int64)
         cand_dists = np.zeros((0, n), dtype=np.int64)
@@ -590,8 +768,9 @@ def zopfli_segment(full: np.ndarray, params, dict_len: int = 0,
     # the single-iteration tier seeds its costs from a greedy pre-pass;
     # the refining tiers start from a gentle prior
     use_prior = params.quality >= 10 and iters > 1
+    native = nb.available()
     if (precollected is None and dict_len == 0 and iters == 1
-            and n >= (1 << 18)):
+            and n >= (1 << 18) and native):
         r = _zopfli_segment_fast_overlapped(full, params, initial_cache)
         if r is not None:
             return r
@@ -601,7 +780,6 @@ def zopfli_segment(full: np.ndarray, params, dict_len: int = 0,
     cand_dists = col["cand_dists"]
     cand_isdict = col["cand_isdict"]
     cand_wire = col["cand_wire"]
-    extra = col["extra"]
     data_region = full[dict_len:]
     lcp = np.concatenate([[0.0], np.cumsum(col["lit_costs"])])
     if not use_prior:
@@ -646,39 +824,24 @@ def zopfli_segment(full: np.ndarray, params, dict_len: int = 0,
         cds = (cost_dist[3, :16] if cost_dist.ndim == 2
                else cost_dist[:16]).copy()
         prev = result
-        if prepared is None:
-            prepared = nb.zopfli_cands_dense(
-                cand_lens, cand_dists, cand_isdict, cand_wire, extra, n,
-                params.dist.npostfix, params.dist.ndirect)
-        if prepared is None:
-            # a source out of position order: concatenate and sort
-            ci, ppr = np.nonzero(cand_lens >= 2)
-            srcs = [(ppr, cand_lens[ci, ppr], cand_dists[ci, ppr],
-                     cand_isdict[ci, ppr], cand_wire[ci, ppr])]
-            srcs += [] if extra is None else (
-                extra if isinstance(extra, list) else [extra])
-            prepared = nb.zopfli_cands(
-                *[np.concatenate([s[k] for s in srcs]) for k in range(5)],
-                n, params.dist.npostfix, params.dist.ndirect)
-        cd4 = (cost_dist if cost_dist.ndim == 2
-               else np.tile(cost_dist, (4, 1)))
-        # the wide insert-start queue pays only in the final iteration,
-        # once the model has converged (the single-iteration tier runs
-        # a narrower one)
-        cost, ps, pl, pw, pd = nb.zopfli_dp_cands(
-            n, lcp, cost_cmd, cds, cd4, prepared, _INS_CODE,
-            C.INSERT_EXTRA, _CMD_SYM.reshape(-1),
-            _CMD_SYM_LAST.reshape(-1), full, dict_len, window_size,
-            np.asarray(initial_cache, dtype=np.int64),
-            n_starts=(min(_FINAL_STARTS, 4) if iters == 1
-                      else _FINAL_STARTS) if it == last_it else 2,
-            cand_cap=((_FAST_CAND_CAP if iters == 1 else 0)
-                      if it == last_it else _EARLY_CAND_CAP),
-            max_zopfli_len=150 if params.quality <= 10 else 325)
-        end_cost = (min(float(cost[n]),
-                        float((cost[:n] - lcp[:n]).min() + lcp[n]))
-                    if n else 0.0)
-        result = _finish_parse(n, lcp, cost, ps, pl, pw, pd)
+        if not native:
+            # the edge-list route: the edges are built once and priced
+            # each iteration; no cost-based convergence stop
+            if prepared is None:
+                prepared = _prepare_edges(cand_lens, cand_dists,
+                                          cand_isdict, cand_wire,
+                                          params.dist, n,
+                                          extra=col["extra"])
+            result = zopfli_parse(
+                n, lcp, cost_cmd, _price_edges(prepared, cost_dist) + (
+                    cds, full, dict_len, window_size,
+                    np.asarray(initial_cache, dtype=np.int64)))
+            end_cost = None
+        else:
+            result, end_cost, prepared = _dp_native(
+                n, lcp, cost_cmd, cds, cost_dist, prepared, col, full,
+                dict_len, window_size, initial_cache, params, iters,
+                it == last_it)
         if prev is not None and all(
                 len(a) == len(b) and np.array_equal(a, b)
                 for a, b in zip(result, prev)):
@@ -686,7 +849,7 @@ def zopfli_segment(full: np.ndarray, params, dict_len: int = 0,
         if it < last_it:
             # when the model-priced parse stops improving, the next
             # iteration is the final one
-            if (prev_end is not None
+            if (end_cost is not None and prev_end is not None
                     and prev_end - end_cost <= 2e-4 * abs(end_cost)):
                 last_it = it + 1
             prev_end = end_cost
@@ -699,3 +862,45 @@ def zopfli_segment(full: np.ndarray, params, dict_len: int = 0,
                                                    dist_alpha)
         it += 1
     return result
+
+
+def _dp_native(n, lcp, cost_cmd, cds, cost_dist, prepared, col, full,
+               dict_len, window_size, initial_cache, params, iters, final):
+    """One iteration of the runtime's candidate DP, with the candidates
+    prepared on the first (prepared None).  Returns (the parse, its
+    model cost, prepared)."""
+    if prepared is None:
+        prepared = nb.zopfli_cands_dense(
+            col["cand_lens"], col["cand_dists"], col["cand_isdict"],
+            col["cand_wire"], col["extra"], n, params.dist.npostfix,
+            params.dist.ndirect)
+    if prepared is None:
+        # a source out of position order: concatenate and sort
+        cand_lens = col["cand_lens"]
+        extra = col["extra"]
+        ci, ppr = np.nonzero(cand_lens >= 2)
+        srcs = [(ppr, cand_lens[ci, ppr], col["cand_dists"][ci, ppr],
+                 col["cand_isdict"][ci, ppr], col["cand_wire"][ci, ppr])]
+        srcs += [] if extra is None else (
+            extra if isinstance(extra, list) else [extra])
+        prepared = nb.zopfli_cands(
+            *[np.concatenate([s[k] for s in srcs]) for k in range(5)],
+            n, params.dist.npostfix, params.dist.ndirect)
+    cd4 = (cost_dist if cost_dist.ndim == 2
+           else np.tile(cost_dist, (4, 1)))
+    # the wide insert-start queue pays only in the final iteration, once
+    # the model has converged (the single-iteration tier runs a
+    # narrower one)
+    cost, ps, pl, pw, pd = nb.zopfli_dp_cands(
+        n, lcp, cost_cmd, cds, cd4, prepared, _INS_CODE, C.INSERT_EXTRA,
+        _CMD_SYM.reshape(-1), _CMD_SYM_LAST.reshape(-1), full, dict_len,
+        window_size, np.asarray(initial_cache, dtype=np.int64),
+        n_starts=(min(_FINAL_STARTS, 4) if iters == 1
+                  else _FINAL_STARTS) if final else 2,
+        cand_cap=((_FAST_CAND_CAP if iters == 1 else 0)
+                  if final else _EARLY_CAND_CAP),
+        max_zopfli_len=150 if params.quality <= 10 else 325)
+    end_cost = (min(float(cost[n]),
+                    float((cost[:n] - lcp[:n]).min() + lcp[n]))
+                if n else 0.0)
+    return _finish_parse(n, lcp, cost, ps, pl, pw, pd), end_cost, prepared

@@ -9,7 +9,8 @@ match lengths, scoring, the pointer-doubling committed parse) on one
 
 dryrun_multichip(n) runs compress_mesh end to end over n shards at
 q9 / lgwin 16 (halo matching per shard, host serialization, BroCatli
-merge) and checks the round trip through the port's native decoder.
+merge) and checks the round trip through the port's decoder (the
+native one, or the Python one where the runtime is not in use).
 Both run on the card unless the caller passes device="cpu".
 """
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import native_bridge as nb
+from .decode.decoder import decompress
 from .device import resolve_device
 from .ops.fold_cuda import best_matches_exact_p
 from .ops.parse import committed_parse
@@ -70,12 +71,12 @@ def dryrun_data() -> bytes:
 def dryrun_multichip(n_devices: int, device=None) -> bytes:
     """compress_mesh over n_devices shards of dryrun_data() at q9 and a
     small window (lgwin 16, so each shard's halo covers the whole
-    window); raises unless the stream decodes back through the native
-    decoder.  Returns the stream."""
+    window); raises unless the stream decodes back through the port's
+    decompress.  Returns the stream."""
     data = dryrun_data()
     out = compress_mesh(data, mesh=make_mesh(n_devices, device), quality=9,
                         lgwin=16)
-    if nb.decode(out) != data:
+    if decompress(out) != data:
         raise RuntimeError("dryrun_multichip: the mesh stream does not "
                            "decode back")
     return out

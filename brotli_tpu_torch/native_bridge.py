@@ -4,8 +4,20 @@ native/*.cpp is compiled with g++ -O3 into brotli_tpu_torch/_build/
 (one object per source, compiled in parallel, then linked).  The
 library's file name carries a hash of the sources, the flags and the
 host CPU, so a checkout rebuilds whenever any of them changes and a
-library built for another CPU is never loaded.  A failed build raises:
-there is no pure-Python fallback on this path.
+library built for another CPU is never loaded.
+
+The no-runtime mode: with BROTLI_TPU_TORCH_NO_NATIVE set (to anything
+but "" or "0"), or where the build fails, available() is false and
+every caller takes its pure-Python or numpy route (the JAX package's
+BROTLI_TPU_NO_NATIVE routes): the match finder, the greedy walk, the
+command resolve, the optimal parser's DP and collectors, the metablock
+planner and store, the bit packer, the host decoders and the batch
+decoder's header walk and LZ execution.  The switch is read at every
+available() and get_lib() call; with it set nothing under native/ is
+compiled or loaded.  get_lib() then raises (it never returns None), so
+a binding called without the available() guard fails loudly.  The CUDA
+kernels (csrc/*.cu, buildcache.py) are not part of the runtime: they
+build and launch in both modes.
 
 Bound here: greedy_parse, extend_caps, encode_metablock,
 invert_perm32 / invert_merge32 (the host inversion of the device's
@@ -129,9 +141,28 @@ def build() -> str:
     return build_once(f"libbrotli_native_{_build_key()}.so", _compile)[0]
 
 
+NO_NATIVE_ENV = "BROTLI_TPU_TORCH_NO_NATIVE"
+
+
+def switched_off() -> bool:
+    """Whether BROTLI_TPU_TORCH_NO_NATIVE asks for the no-runtime
+    mode."""
+    return os.environ.get(NO_NATIVE_ENV, "") not in ("", "0")
+
+
+_build_error = None
+
+
 def get_lib():
-    """The loaded runtime (built on first use)."""
+    """The loaded runtime (built on first use).  Raises RuntimeError in
+    the no-runtime mode (the switch set, or a build that failed)."""
     global _lib
+    if switched_off():
+        raise RuntimeError(f"brotli_tpu_torch: the native runtime is "
+                           f"switched off ({NO_NATIVE_ENV})")
+    if _build_error is not None:
+        raise RuntimeError("brotli_tpu_torch: the native runtime did not "
+                           "build") from _build_error
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -141,15 +172,14 @@ def get_lib():
     return _lib
 
 
-_build_error = None
-
-
 def available() -> bool:
-    """Whether the runtime builds and loads.  A failure is warned about
-    once and remembered, so the callers that have a pure-Python
-    fallback (decode.decoder.decompress, decode.batch) take it without
-    building again; every binding still raises through get_lib()."""
+    """Whether the runtime is in use: false where the switch is set
+    (nothing is built) or the build fails.  A failure is warned about
+    once and remembered, so every caller takes its pure-Python route
+    without building again."""
     global _build_error
+    if switched_off():
+        return False
     if _lib is not None:
         return True
     if _build_error is not None:
@@ -160,7 +190,7 @@ def available() -> bool:
     except (OSError, RuntimeError, subprocess.SubprocessError) as e:
         _build_error = e
         warnings.warn(f"brotli_tpu_torch: native runtime unavailable, the "
-                      f"decoders fall back to pure Python: {e!r}",
+                      f"pure-Python routes run instead: {e!r}",
                       RuntimeWarning)
         return False
 

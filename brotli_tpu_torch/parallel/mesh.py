@@ -22,7 +22,11 @@ scatter with mode="drop") is the same torch ops on the shard's device
 kernel of csrc/fold.cu on a card); sharded_pipeline and match_pipeline
 run ops/matching.best_matches_block (the fold form of csrc/
 match_rounds.cu).  Serialization is the host's, through the port's
-native runtime.
+native runtime; where it is not in use (native_bridge.available()
+false), capped lengths stay capped and every metablock is resolved and
+stored in Python (store_meta_block_auto at quality >= 4, the trivial
+store below), as in the JAX package (brotli_tpu/parallel/mesh.py:
+363-401).
 """
 
 from __future__ import annotations
@@ -297,8 +301,8 @@ def compress_mesh(data, mesh: list | None = None, n_shards: int = None,
         dists = cdist[:cnt].astype(np.int64)
         keep = (pos >= 0) & (pos < real)
         pos, lens, dists = pos[keep], lens[keep], dists[keep]
-        # exact extension of cap-hit matches
-        if len(pos):
+        # exact extension of cap-hit matches (the runtime's)
+        if len(pos) and nb.available():
             capped = lens >= 4 * knobs["rounds"]
             if knobs["variant"] == "exact9":
                 # the short fold caps its lengths at 8: a len == 8 winner
@@ -360,11 +364,11 @@ def _serialize_shard(w, region, row, halo, dlen, start, real, bl, bd,
     store (a metablock is capped at 2^24 bytes by the format).  The
     distance cache rolls across metablocks; a metablock that would
     expand is stored uncompressed.  Where the fused native store refuses
-    a block for its buffer, the commands are resolved here and stored as
-    the JAX package stores them (brotli_tpu/parallel/mesh.py:377-400):
-    store_meta_block_auto at quality >= 4, the trivial store below,
-    kept at <= 8 * mlen + 40 bits, else stored uncompressed with the
-    cache unchanged."""
+    a block for its buffer, or the runtime is not in use, the commands
+    are resolved here and stored as the JAX package stores them
+    (brotli_tpu/parallel/mesh.py:377-400): store_meta_block_auto at
+    quality >= 4, the trivial store below, kept at <= 8 * mlen + 40
+    bits, else stored uncompressed with the cache unchanged."""
     span = 1 << params.lgblock
     bounds = list(range(start + span, real, span)) + [real]
     segs = greedy_parse(region, bl, bd, bsc, bounds, dict_len=dlen,
@@ -377,19 +381,21 @@ def _serialize_shard(w, region, row, halo, dlen, start, real, bl, bd,
         mlen = mb_end - mb_start
         if mlen <= 0:
             continue
-        ctx_mode = choose_context_mode(
-            row[halo + mb_start:halo + mb_end], params.quality,
-            params.mode)
-        if ctx_mode == C.CONTEXT_UTF8:
-            nlc, smap = choose_literal_context_map(
-                region, dlen + mb_start, mlen, params.quality, real)
-        else:
-            nlc, smap = 1, np.zeros(64, dtype=np.int64)
-        res = nb.encode_metablock(
-            region, dlen + mb_start, mlen, False, ins, cps, dst, adv,
-            cache, params.window_size, 0, 0, params.dist.alphabet_size,
-            max(params.quality, 4), ctx_mode, nlc, smap,
-            C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode])
+        res = None
+        if nb.available():
+            ctx_mode = choose_context_mode(
+                row[halo + mb_start:halo + mb_end], params.quality,
+                params.mode)
+            if ctx_mode == C.CONTEXT_UTF8:
+                nlc, smap = choose_literal_context_map(
+                    region, dlen + mb_start, mlen, params.quality, real)
+            else:
+                nlc, smap = 1, np.zeros(64, dtype=np.int64)
+            res = nb.encode_metablock(
+                region, dlen + mb_start, mlen, False, ins, cps, dst, adv,
+                cache, params.window_size, 0, 0, params.dist.alphabet_size,
+                max(params.quality, 4), ctx_mode, nlc, smap,
+                C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode])
         if res is not None and res[1] <= 8 * mlen + 40:
             w.append_packed(res[0], res[1])
             cache[:] = res[2]

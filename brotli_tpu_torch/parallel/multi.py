@@ -11,11 +11,12 @@ Backends: "thread" (a thread a part; the native calls release the GIL),
 "serial" (in the caller's thread), "process" (a process a part, from
 the spawn start method: workers start from a fresh import and never
 touch torch or CUDA) and "workpool" (the C API's persistent pthread
-pool, BrotliEncoderCompressWorkPool).  favor_cpu_efficiency builds one
-match table over the whole input that every part parses against.  All
-of them run on the host through the port's native runtime, at every
-quality (10 and above through the optimal parser).  compress_mesh
-merges its shards' streams with `_merge`.
+pool, BrotliEncoderCompressWorkPool; where the runtime is not in use
+it falls back to threads, as in the JAX package).  favor_cpu_efficiency
+builds one match table over the whole input that every part parses
+against.  All of them run on the host, at every quality (10 and above
+through the optimal parser).  compress_mesh merges its shards' streams
+with `_merge`.
 """
 
 from __future__ import annotations
@@ -144,8 +145,10 @@ def compress_multi(data, num_parts: int, quality: int = 9,
         return compress_with_params(raw, p)
 
     if backend == "workpool" and not favor_cpu_efficiency:
-        return nb.work_pool_compress(raw.tobytes(), num_parts, quality,
-                                     lgwin, mode)
+        if nb.available():
+            return nb.work_pool_compress(raw.tobytes(), num_parts, quality,
+                                         lgwin, mode)
+        backend = "thread"  # the pool is the runtime's
 
     if favor_cpu_efficiency and 2 <= params.quality <= 9:
         knobs = _quality_knobs(params)

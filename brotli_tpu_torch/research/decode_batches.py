@@ -48,10 +48,11 @@ def _slices(corpus: bytes, count: int, size: int, span: int) -> list:
     return [corpus[k * stride:k * stride + size] for k in range(count)]
 
 
-def serving_batch(corpus: bytes, enc, dev):
-    """(streams, inputs) of the serving batch."""
+def serving_batch(corpus: bytes, enc, dev, first: int = SERVE_STREAMS):
+    """(streams, inputs) of the serving batch, or of its first `first`
+    streams."""
     from .. import compress_fast
-    inputs = _slices(corpus, SERVE_STREAMS, SERVE_BYTES, DECODE_SPAN)
+    inputs = _slices(corpus, SERVE_STREAMS, SERVE_BYTES, DECODE_SPAN)[:first]
     streams = [compress_fast(p, lgwin=22, quality=1, device=dev)
                if k % 2 == 0 else enc(p, 3) for k, p in enumerate(inputs)]
     return streams, inputs

@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # the full run, on one card
 
-Builds the native runtime (native/*.cpp, g++) and the CUDA kernels
+Builds the native runtime (native/*.cpp, g++; the run fails unless it
+builds and loads, so that no phase but the no-runtime one takes the
+pure-Python routes) and the CUDA kernels
 (brotli_tpu_torch/csrc/fold.cu, match_rounds.cu, decode_step.cu and
 radix_probe.cu, nvcc for sm_90a) side by side, reads the fewest
 instructions one step of decode_step executes from its SASS (cuobjdump;
@@ -157,6 +159,25 @@ noise, slowly varying integers, random bytes), then:
                 encoder, streaming and tools phases each print their
                 wall and the metablocks the native stores refused in
                 them (Refusals)
+  no-runtime    the no-runtime mode (brotli_tpu_torch/research/
+                no_runtime.py) in a child process with
+                BROTLI_TPU_TORCH_NO_NATIVE=1, nothing of native/ loaded
+                there: on the card, compress_gpu at q5 and q9 on 1 MiB
+                in two 512 KiB spans (the on-device inversion) and
+                max_device at q5, compress_mesh at q5 over 8 shards of
+                128 KiB, compress_fast at q1 on 512 KiB, and
+                decompress_batch_gpu on the serving batch's first 64
+                streams, each behind its pure-Python host leg; on the
+                CPU, compress at q1, q5 and q11, the Compressor at q5
+                and compress_multi(backend="workpool") on 256 KiB; each
+                input a quarter from the head of each quarter of the
+                corpus.  MB/s, ratio and the fold, match_rounds and
+                decode_step launches of each call (each kernel must
+                have launched); every stream decodes back through
+                libbrotlidec; card == CPU for each device path at 128
+                KiB; ops/bitpack.pack_bits_u32 on the card equal to the
+                numpy pack_bits on one metablock's bit items; the
+                child's native_bridge._lib is None at its end
   cpu check     each path on the card equals the same path with
                 device="cpu" byte for byte on a 1 MiB prefix
                 (compress_mesh at q5 and q9 over 8 shards), and
@@ -255,6 +276,7 @@ TOOLS_SMALL_MIB = 1         # its -q11, -i, -findprior, -findspeed, -advstride
 TOOLS_PART_MIB = 2          # its four -catable parts
 TOOLS_BILL_KIB = 512        # billing.account's q9 stream
 TOOLS_REFUSED_MIB = 2       # the low-entropy input the native store refuses
+NO_RUNTIME_TIMEOUT = 600    # the no-runtime phase's child process, seconds
 MESH_ROW = 8 << 20          # a shard row: a 4 MiB halo and 4 MiB shard
 # compress_mesh's folds by quality (fold_cuda.config_name)
 MESH_FOLDS = {5: ["fold_k1p3_f32b0"],
@@ -1380,6 +1402,44 @@ def tools_phase(corpus, card, refusals):
     log(f"tools round trips: ok through {name} and decompress")
 
 
+def no_runtime_phase(corpus, card, enc, dev):
+    """The no-runtime mode in a child process (research/no_runtime.py,
+    BROTLI_TPU_TORCH_NO_NATIVE=1): its inputs written to a temporary
+    file, its lines printed, its last line read.  Fails if the child
+    fails or times out, if a kernel of the three was not launched or if
+    a device path was not held to its CPU run."""
+    import tempfile
+
+    from brotli_tpu_torch.research import no_runtime as NR
+    streams, inputs = serving_batch(corpus, enc, dev, first=NR.LANES)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "no_runtime_inputs.pkl")
+        NR.write_inputs(path, corpus, streams, inputs)
+        env = dict(os.environ, BROTLI_TPU_TORCH_NO_NATIVE="1")
+        r = subprocess.run(
+            [sys.executable, "-m", "brotli_tpu_torch.research.no_runtime",
+             "--inputs", path], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=NO_RUNTIME_TIMEOUT)
+    lines = r.stdout.splitlines()
+    for ln in lines[:-1]:
+        log(ln)
+    if r.returncode != 0 or not lines:
+        log(r.stdout[-4000:])
+        log(r.stderr[-4000:])
+        raise AssertionError(f"no-runtime phase: the child exited with "
+                             f"{r.returncode}")
+    res = json.loads(lines[-1])["no_runtime"]
+    for kernel, n in res["launches"].items():
+        if n == 0:
+            raise AssertionError(f"no-runtime phase: no {kernel} launch")
+    if len(res["card_equals_cpu"]) != 6:
+        raise AssertionError("no-runtime phase: card == CPU checked on "
+                             f"{res['card_equals_cpu']} only")
+    log(card)
+    log(f"no-runtime phase: child wall {res['wall_s']:.1f} s, launches "
+        f"{json.dumps(res['launches'])}")
+
+
 def cpu_check(corpus, dev):
     from brotli_tpu_torch import compress_fast, compress_gpu, compress_mesh
     prefix = corpus[:1 << 20]
@@ -1980,11 +2040,15 @@ def main() -> int:
     from brotli_tpu_torch.research.corpus import make_corpus
     card = card_line()
     log(card)
+    import numpy
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}, numpy {numpy.__version__}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     ds_lib, fold_lib = build_all()
+    from brotli_tpu_torch import native_bridge as nb
+    if not nb.available() or nb._lib is None:
+        raise AssertionError("the native runtime did not build or load")
     fold_ptxas = resource_usage(fold_lib)
     log(f"build wall: {time.perf_counter() - t0:.1f} s")
     floor, n_insns = sass_step_floor(ds_lib)
@@ -2033,6 +2097,9 @@ def main() -> int:
     tools_phase(corpus, card, refusals)
     log(f"tools phase wall: {time.perf_counter() - t0:.1f} s")
     log(refusals.line("tools phase"))
+    t0 = time.perf_counter()
+    no_runtime_phase(corpus, card, enc, dev)
+    log(f"no-runtime phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cpu_check(corpus, dev)
     decode_cpu_check(corpus, dev, enc)

@@ -1,6 +1,9 @@
 """The port's hashed transform index of the static dictionary
 (static_dict.expanded_dict_index) and the runtime's collector over it
-(native_bridge.collect_dict) against brotli_tpu's, on the CPU.
+(native_bridge.collect_dict) against brotli_tpu's, on the CPU; and the
+numpy builder of the sorted index (static_dict.sorted_dict_index where
+the runtime is not in use), which sorts that index, against the
+runtime's and the JAX package's numpy builder.
 
 The index is built in Python from every (word x transform) output, a
 few seconds in each package, so it has a file of its own.  Tolerance:
@@ -50,3 +53,17 @@ def test_collect_dict_matches_jax(indexes, window, dict_len):
     assert len(got) == 4 and len(got[0]) > 1000
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
+
+
+def test_sorted_dict_index_numpy_matches_native_and_jax(indexes,
+                                                        monkeypatch):
+    native = nb.sorted_dict_index_native()
+    monkeypatch.setenv(nb.NO_NATIVE_ENV, "1")
+    monkeypatch.setattr(jnb, "_lib", None)
+    monkeypatch.setattr(jnb, "_tried", True)
+    got = S.sorted_dict_index.__wrapped__()
+    want = JS.sorted_dict_index.__wrapped__()
+    assert len(got) == len(native) == len(want) == 4
+    for a, b, c in zip(got, native, want):
+        assert a.dtype == b.dtype == c.dtype
+        assert np.array_equal(a, b) and np.array_equal(a, c)
