@@ -59,6 +59,20 @@ noise, slowly varying integers, random bytes), then:
                 decode_step's plan as launched (lanes a CTA, CTAs,
                 shared bytes) and microseconds a step of the longest
                 lane
+  mirror phase  the fold mirrors of ops/matching.py (plain torch ops,
+                no kernel of the port) on the card, through
+                brotli_tpu_torch/research/fold_bench.run: the five
+                public mirrors at the q5, q7 and q9 settings of
+                gpu_path._device_knobs and the exact mirror at
+                max_device's q5 and q9, on the 4,718,592-row row
+                compress_gpu dispatches for the 512 KiB span at 4 MiB;
+                best_matches_exact / exact8 / exact9 must equal the
+                CUDA tier wrappers (best_matches_exact_p, ...) bit for
+                bit, every mirror's card result its CPU result, and the
+                wrappers must have launched the fold; prints each
+                mirror's and wrapper's ms (CUDA events around one call,
+                median of 5) under the card line, then one
+                {"fold_mirrors": [...]} line
   path phase    on the whole corpus at lgwin 22: compress_gpu at q5,
                 q7 and q9; compress_fast at q0 and q1; compress_gpu
                 max_device at q5 and q9.  Each path's launch counters
@@ -648,6 +662,29 @@ def _report(what, corpus, out, dt, stats):
     log(f"path {what}: {len(corpus) / dt / 1e6:.2f} MB/s, ratio "
         f"{len(corpus) / len(out):.4f} ({len(out)} bytes), "
         f"stats {json.dumps(stats)}")
+
+
+def mirror_phase(corpus, dev, card):
+    """The fold mirrors against the CUDA tier wrappers and against
+    their CPU results (research/fold_bench.py) on compress_gpu's row
+    for the span at 4 MiB (the corpus's first ROW bytes); the fold's
+    launch counts set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from brotli_tpu_torch.ops import fold_cuda as F
+    from brotli_tpu_torch.research import fold_bench
+    log(f"mirror phase on {card}")
+    row = torch.from_numpy(np.frombuffer(corpus[:ROW], np.uint8).copy())
+    F.LAUNCHES.clear()
+    res = fold_bench.run(dev, row.to(dev), log=log)
+    launched = dict(F.LAUNCHES)
+    if not launched:
+        raise AssertionError("mirror phase: no fold launch of a tier "
+                             "wrapper")
+    log(f"mirror phase fold launches: {json.dumps(launched)}")
+    log(card)
+    log(json.dumps({"fold_mirrors": res}))
 
 
 def path_phase(corpus, dev):
@@ -2069,6 +2106,9 @@ def main() -> int:
     sp_timings = step_probe_phase(dev)
     ds_lanes64 = decode_kernel_phase(corpus, dev, enc, step_insns)
     log(f"kernel phase wall: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mirror_phase(corpus, dev, card)
+    log(f"mirror phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = path_phase(corpus, dev)
     log(f"path phase wall: {time.perf_counter() - t0:.1f} s")

@@ -3,7 +3,9 @@ edges of its design, match_rounds in both forms, decode_step,
 step_probe on its plan's grid, the radix probes' five primitives,
 hist8 also on its edge inputs) against their plain versions, the
 latency probe, and the compress, multi-shard and batch-decode paths,
-the shard pipelines and the entry points on CUDA against the CPU.
+the shard pipelines and the entry points on CUDA against the CPU;
+the fold mirrors of ops/matching.py on the card against their CPU
+results and against the CUDA tier wrappers.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is
 false.  On a machine with a card:
@@ -25,6 +27,7 @@ from brotli_tpu_torch.decode import batch_gpu as B
 from brotli_tpu_torch.ops import decode_gpu as D
 from brotli_tpu_torch.ops import fold_cuda as F
 from brotli_tpu_torch.ops import match_rounds_cuda as MR
+from brotli_tpu_torch.ops import matching as TM
 from brotli_tpu_torch.ops import radix_cuda as RC
 from brotli_tpu_torch.parallel import mesh as M
 from brotli_tpu_torch.research import hist8_ab as H8
@@ -111,6 +114,42 @@ def test_fold_kernel_edges(config, case, mid):
     torch.cuda.synchronize()
     assert torch.equal(packed, rp)
     assert torch.equal(score, rs)
+
+
+# (mirror, its arguments, the tier wrapper computing the same function)
+MIRRORS = [
+    ("packed", dict(k=8, k8=4, rounds=4), None),
+    ("fused", dict(k=16, k8=8, rounds=4), None),
+    ("exact", dict(k=16, k8=8, rounds=2), None),
+    ("exact", dict(k=32, k8=0, rounds=2), dict(k=32, rounds=2)),
+    ("exact8", dict(k=16, rounds=2), dict(k=16, rounds=2)),
+    ("exact9", dict(k=16, k_short=16, rounds=4),
+     dict(k=16, k_short=16, rounds=4)),
+]
+
+
+@pytest.mark.parametrize("min_pos", [0, 7777])
+@pytest.mark.parametrize("name,kw,wkw", MIRRORS)
+def test_fold_mirror_card_matches_cpu(name, kw, wkw, min_pos):
+    """Each fold mirror on the card equals its CPU result; the tier
+    mirrors also equal the CUDA tier wrappers, which launch the fold."""
+    dev = _card()
+    row = torch.from_numpy(_data(100_003, seed=2))
+    fn = getattr(TM, "best_matches_" + name)
+    got = fn(row.to(dev), 1 << 16, min_pos=min_pos, **kw)
+    want = fn(row, 1 << 16, min_pos=min_pos, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.device == dev
+        assert torch.equal(g.cpu(), w)
+    assert int((want[0] != 0).sum()) > 0
+    if wkw is not None:
+        before = sum(F.LAUNCHES.values())
+        p = getattr(F, f"best_matches_{name}_p")(row.to(dev), 1 << 16,
+                                                min_pos=min_pos, **wkw)
+        assert sum(F.LAUNCHES.values()) > before
+        assert torch.equal(p, got[0])
 
 
 @pytest.mark.parametrize("quality", [5, 7, 9])
