@@ -32,6 +32,7 @@ from ..core.dictionary import get_dictionary
 from ..core.prefix import read_prefix_code
 from ..device import resolve_device
 from ..ops.decode_gpu import PH_DONE, batch_decode_device
+from ..utils import trace
 from .decoder import (BrotliDecodeError, _read_context_map, _read_count_code,
                       _read_window_bits, decompress)
 
@@ -62,8 +63,12 @@ def _try_parse_stream(data: bytes):
     common case; the Python walk takes the resumable one, and every
     case where the runtime is not in use."""
     from .. import native_bridge as nb
-    r = nb.parse_lane_header(data) if nb.available() else None
+    r = None
+    if nb.available():
+        with trace.span("walk.native"):
+            r = nb.parse_lane_header(data)
     if r is not None:
+        trace.count("walks_native")
         meta, pre_segs, lit_len, cmd_len, dist_len = r
         segs = [("bytes", data[off:off + ln]) for off, ln in pre_segs]
         lane = _Lane(
@@ -77,19 +82,23 @@ def _try_parse_stream(data: bytes):
         segs.append(("lane", lane))
         return segs, False
     # the native walk only takes a trailing compressed metablock
-    reader = BitReader(data)
-    wbits = _read_window_bits(reader)
-    return _walk_from(data, reader, (1 << wbits) - 16,
-                      list(C.INITIAL_DISTANCE_CACHE), 0)
+    trace.count("walks_python")
+    with trace.span("walk.python"):
+        reader = BitReader(data)
+        wbits = _read_window_bits(reader)
+        return _walk_from(data, reader, (1 << wbits) - 16,
+                          list(C.INITIAL_DISTANCE_CACHE), 0)
 
 
 def _resume_parse_stream(data: bytes, bit_pos: int, cache,
                          window_size: int, out_len: int):
     """Continue a paused walk right after a device-decoded metablock
     (bit_pos: the device's end bit; cache: its final distance ring)."""
-    reader = BitReader(data)
-    reader.bit_pos = bit_pos
-    return _walk_from(data, reader, window_size, list(cache), out_len)
+    trace.count("walks_resumed")
+    with trace.span("walk.resume"):
+        reader = BitReader(data)
+        reader.bit_pos = bit_pos
+        return _walk_from(data, reader, window_size, list(cache), out_len)
 
 
 def _walk_from(data, reader, window_size, cache, out_len):
@@ -239,107 +248,142 @@ def _run_device(lanes, dev: torch.device):
     """One device pass over `lanes`.  The count vectors come back first,
     then only the realized prefix of the wide buffers.  Returns numpy (lits, nlit, cmds, ncmd, end_bit, status,
     cache_out)."""
-    args, max_steps, s_lit, s_cmd = lane_arrays(lanes, dev)
-    lits, nlit, cmds, ncmd, end_bit, status, cache_out = batch_decode_device(
-        *args, max_steps, s_lit, s_cmd)
-    small = torch.stack([nlit, ncmd, end_bit, status]).cpu().numpy()
+    with trace.span("round.lanes"):
+        args, max_steps, s_lit, s_cmd = lane_arrays(lanes, dev)
+    with trace.span("round.kernel"):
+        lits, nlit, cmds, ncmd, end_bit, status, cache_out = \
+            batch_decode_device(*args, max_steps, s_lit, s_cmd)
+        small = torch.stack([nlit, ncmd, end_bit, status]).cpu().numpy()
     nlit, ncmd, end_bit, status = small
-    cache_out = cache_out.cpu().numpy()
-    wl = max(int(nlit.max(initial=0)), 1)
-    wc = max(int(ncmd.max(initial=0)), 1)
-    return (lits[:, :wl].cpu().numpy(), nlit, cmds[:, :wc].cpu().numpy(),
-            ncmd, end_bit, status, cache_out)
+    with trace.span("round.copy_back"):
+        cache_out = cache_out.cpu().numpy()
+        wl = max(int(nlit.max(initial=0)), 1)
+        wc = max(int(ncmd.max(initial=0)), 1)
+        return (lits[:, :wl].cpu().numpy(), nlit,
+                cmds[:, :wc].cpu().numpy(), ncmd, end_bit, status,
+                cache_out)
 
 
-def decompress_batch_gpu(streams, max_rounds: int = 8, device=None):
+DECODE_COUNTERS = ("walks_native", "walks_python", "walks_resumed")
+
+
+def decompress_batch_gpu(streams, max_rounds: int = 8, device=None,
+                         stats: dict | None = None):
     """Decode N streams: metablocks that can run on the device decode
     their symbol layer there, everything else on the host.  Runs on
     CUDA unless device="cpu" is passed (then the plain step loop runs
     on the host).  Returns (outputs, n_device): n_device counts the
-    streams decoded entirely through device lanes."""
-    dev = resolve_device(device)
-    n_streams = len(streams)
-    segs_acc = [[] for _ in range(n_streams)]
-    failed = [False] * n_streams
-    done = [False] * n_streams
-    used_device = [False] * n_streams
+    streams decoded entirely through device lanes.
 
-    def add_plan(i, plan, pend, out):
-        got_lane = False
-        for kind, seg in plan:
-            if kind == "lane":
-                seg.stream_idx = i
-                out.append(seg)
-                got_lane = True
-            else:
-                segs_acc[i].append(seg)
-        if not pend and not got_lane:
-            done[i] = True  # nothing left for the device
+    stats: pass a dict to trace the call (utils/trace.py; with None
+    nothing is recorded).  It receives
+      wall_s  the whole call, in seconds
+      spans   (name, parent index, t0_ns, t1_ns) on the perf_counter_ns
+              clock, parent -1 for the root:
+          decompress_batch_gpu  the call
+          walk.native           the native single-pass header walk (also
+                                one that declines the stream)
+          walk.python           the Python header walk
+          walk.resume           a paused walk resumed after a round
+          round.lanes           the lane arrays built and copied in
+          round.kernel          the launch through the counts' read-back
+          round.copy_back       the realized outputs to the host
+          reconstruct           a lane's LZ execution
+          assemble              the joins of a stream's output so far
+          fallback              the host decoder on a refused stream
+      and the counters
+          walks_native          first walks the native walk took
+          walks_python          first walks in Python
+          walks_resumed         walks resumed after a round"""
+    with trace.recording("decompress_batch_gpu", stats, DECODE_COUNTERS):
+        dev = resolve_device(device)
+        n_streams = len(streams)
+        segs_acc = [[] for _ in range(n_streams)]
+        failed = [False] * n_streams
+        done = [False] * n_streams
+        used_device = [False] * n_streams
 
-    lanes = []
-    for i, s in enumerate(streams):
-        try:
-            plan, pend = _try_parse_stream(bytes(s))
-        except _WALK_ERRORS:
-            plan, pend = None, False
-        if plan is None:
-            failed[i] = True
-            continue
-        add_plan(i, plan, pend, lanes)
+        def add_plan(i, plan, pend, out):
+            got_lane = False
+            for kind, seg in plan:
+                if kind == "lane":
+                    seg.stream_idx = i
+                    out.append(seg)
+                    got_lane = True
+                else:
+                    segs_acc[i].append(seg)
+            if not pend and not got_lane:
+                done[i] = True  # nothing left for the device
 
-    rounds = 0
-    while lanes and rounds < max_rounds:
-        rounds += 1
-        lits, nlit, cmds, ncmd, end_bit, status, cache_out = _run_device(
-            lanes, dev)
-        next_lanes = []
-        for j, ln in enumerate(lanes):
-            i = ln.stream_idx
-            if failed[i]:
-                continue
-            if int(status[j]) != PH_DONE:
-                failed[i] = True  # malformed construct: host fallback
-                continue
-            end = int(end_bit[j])
-            # RFC 7932 section 9.2: the final padding bits must be zero
-            # (the host decoder then raises the matching error)
-            if ln.is_final and (end & 7) and \
-                    (ln.data[end >> 3] >> (end & 7)) != 0:
-                failed[i] = True
-                continue
+        lanes = []
+        for i, s in enumerate(streams):
             try:
-                body = _reconstruct(ln, b"".join(segs_acc[i]), lits[j],
-                                    int(nlit[j]), cmds[j], int(ncmd[j]))
-            except BrotliDecodeError:
-                failed[i] = True
-                continue
-            segs_acc[i].append(body)
-            used_device[i] = True
-            if ln.is_final:
-                done[i] = True
-                continue
-            try:
-                plan, pend = _resume_parse_stream(
-                    ln.data, end, cache_out[j].tolist(), ln.window,
-                    ln.out_prefix_len + ln.mlen)
+                plan, pend = _try_parse_stream(bytes(s))
             except _WALK_ERRORS:
                 plan, pend = None, False
             if plan is None:
                 failed[i] = True
                 continue
-            add_plan(i, plan, pend, next_lanes)
-        lanes = next_lanes
-    for ln in lanes:  # round budget spent: these streams fall back
-        failed[ln.stream_idx] = True
+            add_plan(i, plan, pend, lanes)
 
-    outputs = []
-    n_device = 0
-    for i, s in enumerate(streams):
-        if done[i] and not failed[i]:
-            outputs.append(b"".join(segs_acc[i]))
-            # walk-only streams complete here too, but only streams that
-            # went through a device lane count
-            n_device += int(used_device[i])
-        else:
-            outputs.append(decompress(bytes(s)))
-    return outputs, n_device
+        rounds = 0
+        while lanes and rounds < max_rounds:
+            rounds += 1
+            lits, nlit, cmds, ncmd, end_bit, status, cache_out = _run_device(
+                lanes, dev)
+            next_lanes = []
+            for j, ln in enumerate(lanes):
+                i = ln.stream_idx
+                if failed[i]:
+                    continue
+                if int(status[j]) != PH_DONE:
+                    failed[i] = True  # malformed construct: host fallback
+                    continue
+                end = int(end_bit[j])
+                # RFC 7932 section 9.2: the final padding bits must be zero
+                # (the host decoder then raises the matching error)
+                if ln.is_final and (end & 7) and \
+                        (ln.data[end >> 3] >> (end & 7)) != 0:
+                    failed[i] = True
+                    continue
+                with trace.span("assemble"):
+                    prefix = b"".join(segs_acc[i])
+                try:
+                    with trace.span("reconstruct"):
+                        body = _reconstruct(ln, prefix, lits[j], int(nlit[j]),
+                                            cmds[j], int(ncmd[j]))
+                except BrotliDecodeError:
+                    failed[i] = True
+                    continue
+                segs_acc[i].append(body)
+                used_device[i] = True
+                if ln.is_final:
+                    done[i] = True
+                    continue
+                try:
+                    plan, pend = _resume_parse_stream(
+                        ln.data, end, cache_out[j].tolist(), ln.window,
+                        ln.out_prefix_len + ln.mlen)
+                except _WALK_ERRORS:
+                    plan, pend = None, False
+                if plan is None:
+                    failed[i] = True
+                    continue
+                add_plan(i, plan, pend, next_lanes)
+            lanes = next_lanes
+        for ln in lanes:  # round budget spent: these streams fall back
+            failed[ln.stream_idx] = True
+
+        outputs = []
+        n_device = 0
+        for i, s in enumerate(streams):
+            if done[i] and not failed[i]:
+                with trace.span("assemble"):
+                    outputs.append(b"".join(segs_acc[i]))
+                # walk-only streams complete here too, but only streams that
+                # went through a device lane count
+                n_device += int(used_device[i])
+            else:
+                with trace.span("fallback"):
+                    outputs.append(decompress(bytes(s)))
+        return outputs, n_device

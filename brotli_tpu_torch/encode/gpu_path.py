@@ -51,6 +51,7 @@ from ..ops.fold_cuda import (best_matches_exact8_p, best_matches_exact9_p,
 from ..ops.matching import floor_log2
 from ..ops.parse import committed_parse
 from ..ops.split import split_symbols_device
+from ..utils import trace
 from . import bitstream as bs
 from .command import resolve_commands
 from .match import greedy_parse
@@ -171,54 +172,59 @@ def _host_parse(sorted_out, row, halo, real, dlen, region, knobs,
     device's sorted-space outputs, extend length-capped matches, add
     static-dictionary candidates and run the greedy walk.  Returns the
     walk's segments."""
-    if len(sorted_out) == 1:   # device_invert: position space
-        packed = sorted_out[0][:real].astype(np.int64)
-    else:
-        if len(sorted_out) == 6:  # exact9: two folds, host merge
-            packed = nb.invert_merge32(*sorted_out)
+    with trace.span("host_parse.invert"):
+        if len(sorted_out) == 1:   # device_invert: position space
+            packed = sorted_out[0][:real].astype(np.int64)
         else:
-            packed = nb.invert_perm32(*sorted_out)
-        packed = packed[halo:halo + real].astype(np.int64)
-    bl = packed >> LEN_SHIFT
-    bd = packed & ((1 << LEN_SHIFT) - 1)
-    # exact extension of length-capped matches (every reported length
-    # is byte-attested by the kernel's chunk-value payloads, so
-    # extension resumes at the cap)
-    capped = bl >= 4 * knobs["rounds"]
-    if knobs["variant"] == "exact9":
-        # the short fold caps its lengths at 8: a winning 8-capped
-        # short match may be longer, so len == 8 is a candidate too
-        # (extending a genuine 8 is a no-op byte compare)
-        capped |= bl == 8
-    # without the runtime, capped lengths stay capped (as in the JAX
-    # package)
-    if capped.any() and nb.available():
-        pos_c = np.nonzero(capped)[0]
-        bl[pos_c] = nb.extend_caps(row[:halo + real], 0, pos_c + halo,
-                                   bd[pos_c], bl[pos_c])
-    with np.errstate(divide="ignore"):
-        bsc = np.where(
-            bl > 0,
-            135 * bl - 30 * np.floor(
-                np.log2(np.maximum(bd, 2))).astype(np.int64),
-            0)
-    # union static-dictionary candidates (the device searches the
-    # window only)
-    fl = np.zeros(dlen + real, np.int64)
-    fd = np.zeros(dlen + real, np.int64)
-    fs = np.zeros(dlen + real, np.int64)
-    fi = np.zeros(dlen + real, bool)
-    fw = np.zeros(dlen + real, np.int64)
-    fl[dlen:] = bl
-    fd[dlen:] = bd
-    fs[dlen:] = bsc
-    fw[dlen:] = bl
-    add_dictionary_matches(region, dlen, window_size, 135, fl, fd, fs, fi,
-                           fw)
-    return greedy_parse(region, fl[dlen:], fd[dlen:], fs[dlen:], [real],
-                        dict_len=dlen, pos0=0, initial_cache=tuple(cache),
-                        best_isdict=fi[dlen:], window_size=window_size,
-                        best_wire=fw[dlen:])
+            if len(sorted_out) == 6:  # exact9: two folds, host merge
+                packed = nb.invert_merge32(*sorted_out)
+            else:
+                packed = nb.invert_perm32(*sorted_out)
+            packed = packed[halo:halo + real].astype(np.int64)
+        bl = packed >> LEN_SHIFT
+        bd = packed & ((1 << LEN_SHIFT) - 1)
+    with trace.span("host_parse.extend"):
+        # exact extension of length-capped matches (every reported
+        # length is byte-attested by the kernel's chunk-value payloads,
+        # so extension resumes at the cap)
+        capped = bl >= 4 * knobs["rounds"]
+        if knobs["variant"] == "exact9":
+            # the short fold caps its lengths at 8: a winning 8-capped
+            # short match may be longer, so len == 8 is a candidate too
+            # (extending a genuine 8 is a no-op byte compare)
+            capped |= bl == 8
+        # without the runtime, capped lengths stay capped (as in the
+        # JAX package)
+        if capped.any() and nb.available():
+            pos_c = np.nonzero(capped)[0]
+            bl[pos_c] = nb.extend_caps(row[:halo + real], 0, pos_c + halo,
+                                       bd[pos_c], bl[pos_c])
+        with np.errstate(divide="ignore"):
+            bsc = np.where(
+                bl > 0,
+                135 * bl - 30 * np.floor(
+                    np.log2(np.maximum(bd, 2))).astype(np.int64),
+                0)
+    with trace.span("host_parse.dict_probe"):
+        # union static-dictionary candidates (the device searches the
+        # window only)
+        fl = np.zeros(dlen + real, np.int64)
+        fd = np.zeros(dlen + real, np.int64)
+        fs = np.zeros(dlen + real, np.int64)
+        fi = np.zeros(dlen + real, bool)
+        fw = np.zeros(dlen + real, np.int64)
+        fl[dlen:] = bl
+        fd[dlen:] = bd
+        fs[dlen:] = bsc
+        fw[dlen:] = bl
+        add_dictionary_matches(region, dlen, window_size, 135, fl, fd, fs,
+                               fi, fw)
+    with trace.span("host_parse.walk"):
+        return greedy_parse(region, fl[dlen:], fd[dlen:], fs[dlen:], [real],
+                            dict_len=dlen, pos0=0,
+                            initial_cache=tuple(cache),
+                            best_isdict=fi[dlen:], window_size=window_size,
+                            best_wire=fw[dlen:])
 
 
 class _Pipeline:
@@ -243,34 +249,37 @@ class _Pipeline:
             self.pin_out = [None] * nslots
 
     def dispatch(self, j):
-        if not self.cuda:
-            self.inflight[j] = (None, self.run(
-                j, torch.from_numpy(self.rows[j])))
-            return
-        slot = j % (_MAX_INFLIGHT + 1)
-        self.pin_in[slot].numpy()[:] = self.rows[j]
-        with torch.cuda.stream(self.stream):
-            row_d = self.pin_in[slot].to(self.dev, non_blocking=True)
-            outs = self.run(j, row_d)
-            bufs = self.pin_out[slot]
-            if bufs is None or [b.shape for b in bufs] != \
-                    [o.shape for o in outs]:
-                bufs = self.pin_out[slot] = [
-                    torch.empty(o.shape, dtype=o.dtype).pin_memory()
-                    for o in outs]
-            for b, o in zip(bufs, outs):
-                b.copy_(o, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(self.stream)
-        self.inflight[j] = (ev, bufs)
+        with trace.span("pipe.dispatch"):
+            if not self.cuda:
+                self.inflight[j] = (None, self.run(
+                    j, torch.from_numpy(self.rows[j])))
+                return
+            slot = j % (_MAX_INFLIGHT + 1)
+            self.pin_in[slot].numpy()[:] = self.rows[j]
+            with torch.cuda.stream(self.stream):
+                row_d = self.pin_in[slot].to(self.dev, non_blocking=True)
+                outs = self.run(j, row_d)
+                bufs = self.pin_out[slot]
+                if bufs is None or [b.shape for b in bufs] != \
+                        [o.shape for o in outs]:
+                    with trace.span("entry.call_setup"):
+                        bufs = self.pin_out[slot] = [
+                            torch.empty(o.shape, dtype=o.dtype).pin_memory()
+                            for o in outs]
+                for b, o in zip(bufs, outs):
+                    b.copy_(o, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self.stream)
+            self.inflight[j] = (ev, bufs)
 
     def wait(self, j):
         """Block until dispatch j's results are on the host; returns
         them as numpy arrays (views of the slot's pinned buffers)."""
-        ev, outs = self.inflight.pop(j)
-        if ev is not None:
-            ev.synchronize()
-        return [o.numpy() for o in outs]
+        with trace.span("pipe.wait"):
+            ev, outs = self.inflight.pop(j)
+            if ev is not None:
+                ev.synchronize()
+            return [o.numpy() for o in outs]
 
 
 def _store_py(w, region, dlen, real, seg, params, n, is_last, cache):
@@ -299,127 +308,156 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
 
     device: None = CUDA (raises when there is none); "cpu" runs the
     same path with the fold's plain PyTorch version.
-    stats: pass a dict to receive the pipeline shape -- wall_s,
-    host_busy_s (the host's serialization leg), device_wait_s (blocked
-    on the device) and device_fraction = device_wait / wall."""
-    dev = resolve_device(device)
-    raw = np.frombuffer(bytes(data), dtype=np.uint8)
-    params = EncoderParams(quality=quality, lgwin=lgwin,
-                           mode=mode).sanitize(len(raw))
-    n = len(raw)
-    w = BitWriter()
-    bs.write_stream_header(w, params.lgwin, params.large_window)
-    if n == 0:
-        bs.write_empty_last_meta_block(w)
+
+    stats: pass a dict to trace the call (utils/trace.py; with None
+    nothing is recorded).  It receives
+      wall_s         the whole call, in seconds
+      device_wait_s  the host blocked on the device (the pipe.wait spans)
+      spans          (name, parent index, t0_ns, t1_ns) on the
+                     perf_counter_ns clock, parent -1 for the root:
+          compress_gpu           the call
+          entry.rows             the input's fixed-shape rows
+          entry.call_setup       the link probe, the pipeline's stream
+                                 and pinned buffers (also inside
+                                 pipe.dispatch: a slot's first output
+                                 buffers)
+          pipe.dispatch          the pinned row copy and the enqueue (on
+                                 the CPU: the matcher itself)
+          pipe.wait              the wait on a dispatch's event
+          host_parse             the host leg of one span's matches, with
+            host_parse.invert      the inversion (or merge) to positions
+            host_parse.extend      the extension of capped lengths, scores
+            host_parse.dict_probe  the static-dictionary candidates
+            host_parse.walk        the greedy walk
+          store.context          the context mode and literal context map
+          store.literals         the literal extraction
+          store.split            the literal block split on the device
+          store.metablock        the native store and the bit append (no
+                                 runtime: the Python planner and store)
+          store.raw              a span stored uncompressed where the
+                                 native store refused it or grew it"""
+    with trace.recording("compress_gpu", stats,
+                         sums={"device_wait_s": "pipe.wait"}):
+        dev = resolve_device(device)
+        raw = np.frombuffer(bytes(data), dtype=np.uint8)
+        params = EncoderParams(quality=quality, lgwin=lgwin,
+                               mode=mode).sanitize(len(raw))
+        n = len(raw)
+        w = BitWriter()
+        bs.write_stream_header(w, params.lgwin, params.large_window)
+        if n == 0:
+            bs.write_empty_last_meta_block(w)
+            return w.getvalue()
+
+        if span is None:
+            span = 1 << params.lgblock
+        # the halo always covers the window, so (a) every in-window match
+        # is visible to the device and (b) row-local positions p >= halo
+        # have min(p, window) == min(abs_pos, window) -- dictionary
+        # pseudo-distances computed row-locally are exact
+        halo = -(-(params.window_size + 16) // 4096) * 4096
+        knobs = _device_knobs(params.quality)
+
+        # fixed-shape rows: every dispatch has one shape
+        with trace.span("entry.rows"):
+            starts = list(range(0, n, span))
+            rows = np.zeros((len(starts), halo + span), dtype=np.uint8)
+            min_pos = np.zeros(len(starts), np.int32)
+            for j, s0 in enumerate(starts):
+                real = min(span, n - s0)
+                rows[j, halo:halo + real] = raw[s0:s0 + real]
+                ctx_lo = max(0, s0 - halo)
+                fill = s0 - ctx_lo
+                if fill:
+                    rows[j, halo - fill:halo] = raw[ctx_lo:s0]
+                min_pos[j] = halo - fill
+
+        with trace.span("entry.call_setup"):
+            if max_device:
+                def run(j, row_d):
+                    return _match_parse_dense(row_d, int(min_pos[j]),
+                                              params.window_size, halo,
+                                              k=knobs["k"],
+                                              rounds=max(knobs["rounds"], 6))
+            else:
+                # the host inversion is the runtime's: without it, invert on
+                # the device
+                device_invert = (_pick_device_invert(dev) if nb.available()
+                                 else True)
+
+                def run(j, row_d):
+                    return _match_dense(row_d, int(min_pos[j]),
+                                        params.window_size, halo,
+                                        device_invert=device_invert, **knobs)
+
+            pipe = _Pipeline(rows, dev, run)
+        for j in range(min(_MAX_INFLIGHT, len(starts))):
+            pipe.dispatch(j)
+
+        cache = list(C.INITIAL_DISTANCE_CACHE)
+        for j, s0 in enumerate(starts):
+            # device results arrive in content-sorted space (pos_s,
+            # packed_s[, score_s] per fold) unless inverted on the device;
+            # max_device: (visited, take, dist) of the span
+            sorted_out = pipe.wait(j)
+            if j + _MAX_INFLIGHT < len(starts):
+                pipe.dispatch(j + _MAX_INFLIGHT)
+            real = min(span, n - s0)
+            row = rows[j]
+            # drop the zero-filled part of the halo: with dlen = halo -
+            # min_pos (== min(s0, halo)) every row-local position maps to
+            # its absolute stream position, so the walk's distance limits
+            # and dictionary pseudo-distances are exact for every span
+            mp0 = int(min_pos[j])
+            dlen = halo - mp0
+            region = row[mp0:halo + real]
+            with trace.span("host_parse"):
+                if max_device:
+                    segs = [_commands_from_parse(*sorted_out, real)]
+                else:
+                    segs = _host_parse(sorted_out, row, halo, real, dlen,
+                                       region, knobs, params.window_size,
+                                       cache)
+            ins, cps, dst, adv = segs[0]
+            is_last = j == len(starts) - 1
+            if not nb.available():
+                with trace.span("store.metablock"):
+                    cache = _store_py(w, region, dlen, real, segs[0],
+                                      params, n, is_last, cache)
+                continue
+            with trace.span("store.context"):
+                ctx_mode = choose_context_mode(row[halo:halo + real],
+                                               params.quality, params.mode)
+                if ctx_mode == C.CONTEXT_UTF8:
+                    nlc, smap = choose_literal_context_map(
+                        region, dlen, real, params.quality, n)
+                else:
+                    nlc, smap = 1, np.zeros(64, dtype=np.int64)
+            # literal block split planned on the device; a failure raises
+            ext_split = None
+            with trace.span("store.literals"):
+                lit_stream = bs.extract_literals(region, dlen, ins, adv)
+            if len(lit_stream) >= 128:
+                with trace.span("store.split"):
+                    sp = split_symbols_device(lit_stream.astype(np.int64), 256,
+                                              "literal", dev)
+                if sp.num_types > 1:
+                    ext_split = (sp.types.astype(np.int32), sp.num_types)
+            with trace.span("store.metablock"):
+                res = nb.encode_metablock(
+                    region, dlen, real, is_last, ins, cps, dst, adv,
+                    cache, params.window_size, 0, 0,
+                    params.dist.alphabet_size, max(params.quality, 4),
+                    ctx_mode, nlc, smap, C.CONTEXT_LUT0[ctx_mode],
+                    C.CONTEXT_LUT1[ctx_mode], ext_lit_split=ext_split)
+                stored = res is not None and res[1] <= 8 * real + 40
+                if stored:
+                    words, nbits, cache = res
+                    w.append_packed(words, nbits)
+            if not stored:
+                with trace.span("store.raw"):
+                    bs.store_uncompressed_meta_block(
+                        w, raw[s0:s0 + real].tobytes())
+                    if is_last:
+                        bs.write_empty_last_meta_block(w)
         return w.getvalue()
-
-    if span is None:
-        span = 1 << params.lgblock
-    # the halo always covers the window, so (a) every in-window match
-    # is visible to the device and (b) row-local positions p >= halo
-    # have min(p, window) == min(abs_pos, window) -- dictionary
-    # pseudo-distances computed row-locally are exact
-    halo = -(-(params.window_size + 16) // 4096) * 4096
-    knobs = _device_knobs(params.quality)
-
-    # fixed-shape rows: every dispatch has one shape
-    starts = list(range(0, n, span))
-    rows = np.zeros((len(starts), halo + span), dtype=np.uint8)
-    min_pos = np.zeros(len(starts), np.int32)
-    for j, s0 in enumerate(starts):
-        real = min(span, n - s0)
-        rows[j, halo:halo + real] = raw[s0:s0 + real]
-        ctx_lo = max(0, s0 - halo)
-        fill = s0 - ctx_lo
-        if fill:
-            rows[j, halo - fill:halo] = raw[ctx_lo:s0]
-        min_pos[j] = halo - fill
-
-    if max_device:
-        def run(j, row_d):
-            return _match_parse_dense(row_d, int(min_pos[j]),
-                                      params.window_size, halo,
-                                      k=knobs["k"],
-                                      rounds=max(knobs["rounds"], 6))
-    else:
-        # the host inversion is the runtime's: without it, invert on
-        # the device
-        device_invert = (_pick_device_invert(dev) if nb.available()
-                         else True)
-
-        def run(j, row_d):
-            return _match_dense(row_d, int(min_pos[j]), params.window_size,
-                                halo, device_invert=device_invert, **knobs)
-
-    pipe = _Pipeline(rows, dev, run)
-    for j in range(min(_MAX_INFLIGHT, len(starts))):
-        pipe.dispatch(j)
-
-    cache = list(C.INITIAL_DISTANCE_CACHE)
-    t_start = time.perf_counter()
-    device_wait = 0.0
-    for j, s0 in enumerate(starts):
-        t0 = time.perf_counter()
-        # device results arrive in content-sorted space (pos_s,
-        # packed_s[, score_s] per fold) unless inverted on the device;
-        # max_device: (visited, take, dist) of the span
-        sorted_out = pipe.wait(j)
-        device_wait += time.perf_counter() - t0
-        if j + _MAX_INFLIGHT < len(starts):
-            pipe.dispatch(j + _MAX_INFLIGHT)
-        real = min(span, n - s0)
-        row = rows[j]
-        # drop the zero-filled part of the halo: with dlen = halo -
-        # min_pos (== min(s0, halo)) every row-local position maps to
-        # its absolute stream position, so the walk's distance limits
-        # and dictionary pseudo-distances are exact for every span
-        mp0 = int(min_pos[j])
-        dlen = halo - mp0
-        region = row[mp0:halo + real]
-        if max_device:
-            segs = [_commands_from_parse(*sorted_out, real)]
-        else:
-            segs = _host_parse(sorted_out, row, halo, real, dlen, region,
-                               knobs, params.window_size, cache)
-        ins, cps, dst, adv = segs[0]
-        is_last = j == len(starts) - 1
-        if not nb.available():
-            cache = _store_py(w, region, dlen, real, segs[0], params, n,
-                              is_last, cache)
-            continue
-        ctx_mode = choose_context_mode(row[halo:halo + real],
-                                       params.quality, params.mode)
-        if ctx_mode == C.CONTEXT_UTF8:
-            nlc, smap = choose_literal_context_map(
-                region, dlen, real, params.quality, n)
-        else:
-            nlc, smap = 1, np.zeros(64, dtype=np.int64)
-        # literal block split planned on the device; a failure raises
-        ext_split = None
-        lit_stream = bs.extract_literals(region, dlen, ins, adv)
-        if len(lit_stream) >= 128:
-            sp = split_symbols_device(lit_stream.astype(np.int64), 256,
-                                      "literal", dev)
-            if sp.num_types > 1:
-                ext_split = (sp.types.astype(np.int32), sp.num_types)
-        res = nb.encode_metablock(
-            region, dlen, real, is_last, ins, cps, dst, adv,
-            cache, params.window_size, 0, 0,
-            params.dist.alphabet_size, max(params.quality, 4),
-            ctx_mode, nlc, smap, C.CONTEXT_LUT0[ctx_mode],
-            C.CONTEXT_LUT1[ctx_mode], ext_lit_split=ext_split)
-        if res is None or res[1] > 8 * real + 40:
-            bs.store_uncompressed_meta_block(
-                w, raw[s0:s0 + real].tobytes())
-            if is_last:
-                bs.write_empty_last_meta_block(w)
-        else:
-            words, nbits, cache = res
-            w.append_packed(words, nbits)
-    if stats is not None:
-        wall = time.perf_counter() - t_start
-        stats["wall_s"] = wall
-        stats["device_wait_s"] = device_wait
-        stats["host_busy_s"] = wall - device_wait
-        stats["device_fraction"] = device_wait / wall if wall else 0.0
-    return w.getvalue()

@@ -659,9 +659,10 @@ def _round_trip(name, decode, out, corpus, what):
 
 
 def _report(what, corpus, out, dt, stats):
+    scalars = {k: v for k, v in stats.items() if k != "spans"}
     log(f"path {what}: {len(corpus) / dt / 1e6:.2f} MB/s, ratio "
         f"{len(corpus) / len(out):.4f} ({len(out)} bytes), "
-        f"stats {json.dumps(stats)}")
+        f"stats {json.dumps(scalars)}")
 
 
 def mirror_phase(corpus, dev, card):

@@ -45,9 +45,9 @@ def test_compress_gpu_cpu_matches_compress_tpu(quality):
     assert decompress(got) == DATA
     if oracle.available():
         assert oracle.decompress(got) == DATA
-    assert set(stats) == {"wall_s", "device_wait_s", "host_busy_s",
-                          "device_fraction"}
-    assert 0.0 <= stats["device_fraction"] <= 1.0
+    assert set(stats) == {"wall_s", "device_wait_s", "spans"}
+    assert 0.0 <= stats["device_wait_s"] <= stats["wall_s"]
+    assert [s[0] for s in stats["spans"]].count("host_parse") == 4
 
 
 @pytest.mark.parametrize("data", [b"", b"a", b"abcabcabcabcabcabcabc" * 3])

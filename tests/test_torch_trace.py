@@ -1,0 +1,400 @@
+"""Spans and counters of the two traced entry points (utils/trace.py).
+
+compress_gpu and decompress_batch_gpu record only when the caller
+passes `stats`: with stats=None they return the bytes and n_device of
+the untraced program (compress_gpu: compress_tpu's stream), with a dict
+the same, plus spans that nest (each inside its parent, the host-parse
+steps inside host_parse) and counters that are exact on known inputs.
+On the CPU, small inputs (the decoder's plain step loop takes about a
+millisecond a step).
+"""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from . import oracle
+from brotli_tpu.encode.tpu_path import compress_tpu
+from brotli_tpu_torch import compress, compress_gpu, decompress_batch_gpu
+from brotli_tpu_torch import native_bridge as nb
+from brotli_tpu_torch.decode import batch_gpu as B
+from brotli_tpu_torch.encode import fast as TF
+from brotli_tpu_torch.encode import gpu_path as G
+from brotli_tpu_torch.utils import trace
+from .test_torch_encoder import dictionary_slice, phrases
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+SPAN = 1 << 13
+TEXT = phrases(14_000, seed=181) + dictionary_slice(40_000, 42_000)
+RANDOM = np.random.default_rng(182).integers(0, 256, SPAN, np.uint8).tobytes()
+DATA = TEXT[:2 * SPAN] + RANDOM + TEXT[2 * SPAN:]
+
+COMPRESS_SPANS = {"compress_gpu", "entry.rows", "entry.call_setup",
+                  "pipe.dispatch", "pipe.wait", "host_parse",
+                  "host_parse.invert", "host_parse.extend",
+                  "host_parse.dict_probe", "host_parse.walk",
+                  "store.context", "store.literals", "store.split",
+                  "store.metablock", "store.raw"}
+DECODE_SPANS = {"decompress_batch_gpu", "walk.native", "walk.python",
+                "walk.resume", "round.lanes", "round.kernel",
+                "round.copy_back", "reconstruct", "assemble", "fallback"}
+
+
+def _names(stats):
+    return [s[0] for s in stats["spans"]]
+
+
+def _off():
+    """No recorder is current: a span is the shared no-op."""
+    return trace.span("probe") is trace.recording("probe", None)
+
+
+def _assert_nested(spans):
+    """The root first; every other span inside its parent, which opened
+    before it; siblings in order, apart."""
+    name, parent, t0, t1 = spans[0]
+    assert parent == -1 and t0 <= t1
+    last_end = {}
+    for k, (name, parent, t0, t1) in enumerate(spans[1:], 1):
+        assert 0 <= parent < k, (k, name, parent)
+        _, _, p0, p1 = spans[parent]
+        assert p0 <= t0 <= t1 <= p1, (name, spans[parent][0])
+        assert t0 >= last_end.get(parent, p0)
+        last_end[parent] = t1
+
+
+# -- the recorder ------------------------------------------------------
+
+
+def test_off_costs_no_recorder_and_no_allocation():
+    off = trace.recording("root", None)
+    assert trace.span("a") is trace.span("b") is off   # one shared object
+    with off as s:
+        with trace.span("a") as t:
+            assert s is None and t is None
+        trace.count("a")                          # nothing to count into
+    assert _off()
+
+
+def test_recording_nests_counts_and_resets():
+    stats = {}
+    rec = trace.recording("root", stats, ("c", "unused"), {"a_s": "a"})
+    with rec:
+        with trace.span("a"):
+            with trace.span("a.x"):
+                trace.count("c")
+            trace.count("c")
+        with trace.span("b"):
+            trace.count("other")
+        with trace.span("a"):
+            pass
+    with trace.span("late"):                      # the recorder is gone
+        trace.count("c")
+    assert _off() and len(rec.spans) == 5
+    assert _names(stats) == ["root", "a", "a.x", "b", "a"]
+    spans = stats["spans"]
+    assert [s[1] for s in spans] == [-1, 0, 1, 0, 0]
+    _assert_nested(spans)
+    assert (stats["c"], stats["unused"], stats["other"]) == (2, 0, 1)
+    assert stats["a_s"] == sum(s[3] - s[2] for s in spans
+                               if s[0] == "a") / 1e9
+    assert stats["wall_s"] == (spans[0][3] - spans[0][2]) / 1e9 > 0
+    assert all(isinstance(stats[k], int) for k in ("c", "unused", "other"))
+
+
+def test_recording_closes_spans_on_an_exception():
+    stats = {}
+    with pytest.raises(ValueError):
+        with trace.recording("root", stats):
+            with trace.span("a"):
+                raise ValueError("x")
+    assert _off()
+    assert _names(stats) == ["root", "a"]
+    _assert_nested(stats["spans"])
+
+
+def test_recording_is_per_context():
+    """A thread started inside a traced call records nothing; an inner
+    traced call records apart and hands the outer one back."""
+    seen = []
+    outer, inner = {}, {}
+    with trace.recording("outer", outer):
+        t = threading.Thread(target=lambda: seen.append(_off()))
+        t.start()
+        t.join()
+        with trace.recording("inner", inner):
+            with trace.span("x"):
+                pass
+        with trace.span("y"):
+            pass
+    assert seen == [True]
+    assert _names(inner) == ["inner", "x"]
+    assert _names(outer) == ["outer", "y"]
+
+
+# -- compress_gpu ------------------------------------------------------
+
+
+@pytest.mark.parametrize("quality", range(2, 10))
+def test_compress_gpu_untraced_bytes_unchanged(quality):
+    want = compress_tpu(DATA, quality=quality, span=SPAN)
+    assert compress_gpu(DATA, quality=quality, span=SPAN,
+                        device="cpu") == want
+    stats = {}
+    assert compress_gpu(DATA, quality=quality, span=SPAN, stats=stats,
+                        device="cpu") == want
+    if oracle.available():
+        assert oracle.decompress(want) == DATA
+
+
+def _traced_compress(quality, **kw):
+    stats = {}
+    out = compress_gpu(DATA, quality=quality, span=SPAN, stats=stats,
+                       device="cpu", **kw)
+    assert out == compress_gpu(DATA, quality=quality, span=SPAN,
+                               device="cpu", **kw)
+    return stats
+
+
+@pytest.mark.parametrize("quality,max_device", [
+    (2, False), (5, False), (7, False), (9, False), (5, True), (9, True)])
+def test_compress_gpu_spans_nest(quality, max_device):
+    stats = _traced_compress(quality, max_device=max_device)
+    spans = stats["spans"]
+    _assert_nested(spans)
+    names = _names(stats)
+    assert names[0] == "compress_gpu" and set(names) <= COMPRESS_SPANS
+    n_spans = -(-len(DATA) // SPAN)
+    assert names.count("pipe.wait") == names.count("host_parse") == n_spans
+    assert names.count("pipe.dispatch") == n_spans
+    for k, (name, parent, _, _) in enumerate(spans):
+        if name.startswith("host_parse."):
+            assert spans[parent][0] == "host_parse"
+        if name in ("pipe.wait", "host_parse") or name.startswith("store."):
+            assert parent == 0, name
+    kids = [names[k] for k, s in enumerate(spans) if s[1] >= 0
+            and spans[s[1]][0] == "host_parse"]
+    want = [] if max_device else ["host_parse.invert", "host_parse.extend",
+                                  "host_parse.dict_probe",
+                                  "host_parse.walk"] * n_spans
+    assert kids == want
+    root = spans[0]
+    assert stats["wall_s"] == (root[3] - root[2]) / 1e9
+    waits = sum(s[3] - s[2] for s in spans if s[0] == "pipe.wait")
+    assert stats["device_wait_s"] == waits / 1e9 <= stats["wall_s"]
+
+
+@pytest.mark.parametrize("quality", [3, 5, 9])
+def test_compress_gpu_span_counts_exact(quality):
+    stats = _traced_compress(quality)
+    names = _names(stats)
+    n_spans = -(-len(DATA) // SPAN)
+    assert names.count("store.metablock") == n_spans
+    # the random span, and only it, is stored uncompressed
+    assert names.count("store.raw") == 1
+    hosts = [k for k, n in enumerate(names) if n == "host_parse"]
+    raw = names.index("store.raw")
+    assert [h < raw for h in hosts] == [True] * 3 + [False] * (n_spans - 3)
+
+
+@pytest.mark.parametrize("invert", ["0", "1"])
+def test_compress_gpu_host_leg_calls_inside_their_spans(invert,
+                                                        monkeypatch):
+    """The inversion, the cap extension and the dictionary probe run
+    inside the host_parse children that name them."""
+    monkeypatch.setenv("BROTLI_TPU_TORCH_DEVICE_INVERT", invert)
+    calls = {"host_parse.invert": [], "host_parse.extend": [],
+             "host_parse.dict_probe": []}
+
+    def spy(fn, name):
+        def call(*a, **kw):
+            calls[name].append(time.perf_counter_ns())
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr(nb, "invert_perm32",
+                        spy(nb.invert_perm32, "host_parse.invert"))
+    monkeypatch.setattr(nb, "extend_caps",
+                        spy(nb.extend_caps, "host_parse.extend"))
+    monkeypatch.setattr(G, "add_dictionary_matches",
+                        spy(G.add_dictionary_matches,
+                            "host_parse.dict_probe"))
+    stats = {}
+    compress_gpu(DATA, quality=5, span=SPAN, stats=stats, device="cpu")
+    n_spans = -(-len(DATA) // SPAN)
+    assert len(calls["host_parse.invert"]) == (n_spans if invert == "0"
+                                               else 0)
+    assert calls["host_parse.extend"]        # repeated phrases
+    assert len(calls["host_parse.dict_probe"]) == n_spans
+    for name, ts in calls.items():
+        ivs = [(t0, t1) for n, _, t0, t1 in stats["spans"] if n == name]
+        assert len(ivs) == n_spans
+        assert all(any(t0 <= t <= t1 for t0, t1 in ivs) for t in ts), name
+
+
+def test_compress_gpu_empty_input_traced():
+    stats = {}
+    assert compress_gpu(b"", quality=5, stats=stats,
+                        device="cpu") == compress_gpu(b"", quality=5,
+                                                      device="cpu")
+    assert _names(stats) == ["compress_gpu"]
+    assert stats["device_wait_s"] == 0.0
+
+
+def test_compress_gpu_no_runtime_spans(monkeypatch):
+    """Without the runtime the pure-Python store, raw blocks included,
+    is the store.metablock span."""
+    monkeypatch.setenv(nb.NO_NATIVE_ENV, "1")
+    data = TEXT[:3000] + RANDOM[:4096]
+    stats = {}
+    out = compress_gpu(data, quality=5, span=4096, stats=stats,
+                       device="cpu")
+    assert out == compress_gpu(data, quality=5, span=4096, device="cpu")
+    names = _names(stats)
+    _assert_nested(stats["spans"])
+    assert names.count("store.metablock") == names.count("host_parse") == 2
+    assert "store.context" not in names and "store.raw" not in names
+    monkeypatch.delenv(nb.NO_NATIVE_ENV)
+    if oracle.available():
+        assert oracle.decompress(out) == data
+
+
+def test_compress_gpu_stats_keys():
+    stats = _traced_compress(4)
+    assert set(stats) == {"wall_s", "device_wait_s", "spans"}
+
+
+# -- decompress_batch_gpu ----------------------------------------------
+
+
+def _fast_stream(data, shard):
+    old = TF.SHARD
+    TF.SHARD = shard
+    try:
+        return TF.compress_fast(data, lgwin=18, device="cpu")
+    finally:
+        TF.SHARD = old
+
+
+PLAIN = [TEXT[:700], TEXT[1000:1700], TEXT[3000:4600], TEXT[5000:8000], b""]
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """google's q1 (a compressed metablock, then an empty last one: the
+    Python walk and one resume), google's q3 (the native walk), a
+    stream of four 400-byte metablocks (the Python walk, three resumes,
+    four rounds), a q11 stream (the host decoder) and a walk-only
+    stream.  Decoded untraced and traced."""
+    if not oracle.available():
+        pytest.skip("libbrotlienc is needed for google's streams")
+    streams = [oracle.compress(PLAIN[0], quality=1),
+               oracle.compress(PLAIN[1], quality=3),
+               _fast_stream(PLAIN[2], 400),
+               compress(PLAIN[3], quality=11),
+               b"\x3b"]
+    plain = decompress_batch_gpu(streams, device="cpu")
+    stats = {}
+    traced = decompress_batch_gpu(streams, device="cpu", stats=stats)
+    return streams, plain, traced, stats
+
+
+def test_decode_untraced_outputs_unchanged(batch):
+    streams, plain, traced, _ = batch
+    assert plain == (PLAIN, 3)
+    assert traced == plain
+
+
+@pytest.mark.parametrize("key,want", [
+    ("walks_native", 1), ("walks_python", 4), ("walks_resumed", 4),
+    ("round.kernel", 4), ("reconstruct", 6), ("fallback", 1),
+    ("n_device", 3)])
+def test_decode_counts_exact(batch, key, want):
+    """Counters, spans counted by name, and the returned n_device."""
+    _, _, (_, n_device), stats = batch
+    if key == "n_device":
+        assert n_device == want
+    elif key in stats:
+        assert stats[key] == want
+    else:
+        assert _names(stats).count(key) == want
+
+
+def test_decode_spans_nest(batch):
+    stats = batch[3]
+    spans = stats["spans"]
+    _assert_nested(spans)
+    names = _names(stats)
+    assert names[0] == "decompress_batch_gpu" and set(names) <= DECODE_SPANS
+    assert all(s[1] == 0 for s in spans[1:])   # every span under the root
+    # the native walk is tried on every first walk; it took one
+    assert names.count("walk.native") == len(batch[0])
+    assert names.count("walk.python") == stats["walks_python"]
+    assert names.count("walk.resume") == stats["walks_resumed"]
+    for part in ("round.lanes", "round.copy_back"):
+        assert names.count(part) == names.count("round.kernel")
+    assert stats["wall_s"] == (spans[0][3] - spans[0][2]) / 1e9
+
+
+def test_decode_rounds_in_order(batch):
+    """Each round's lanes, kernel and copy back follow each other."""
+    spans = batch[3]["spans"]
+    parts = [s for s in spans if s[0].startswith("round.")]
+    assert [s[0] for s in parts] == ["round.lanes", "round.kernel",
+                                     "round.copy_back"] * 4
+    assert all(a[3] <= b[2] for a, b in zip(parts, parts[1:]))
+
+
+@pytest.mark.parametrize("n_meta", [2, 3, 5])
+def test_decode_multi_metablock_rounds(n_meta):
+    """A stream of n 256-byte metablocks: one Python walk, n - 1
+    resumes, n rounds of one lane."""
+    plain = TEXT[2000:2000 + 256 * n_meta]
+    s = _fast_stream(plain, 256)
+    stats = {}
+    assert decompress_batch_gpu([s], device="cpu", stats=stats) == (
+        [plain], 1)
+    assert (stats["walks_native"], stats["walks_python"],
+            stats["walks_resumed"]) == (0, 1, n_meta - 1)
+    names = _names(stats)
+    assert names.count("round.kernel") == names.count("reconstruct") == n_meta
+    _assert_nested(stats["spans"])
+
+
+def test_decode_round_budget_falls_back():
+    """Lanes left when max_rounds is spent go to the host decoder."""
+    plain = TEXT[2000:2768]
+    s = _fast_stream(plain, 256)
+    stats = {}
+    assert decompress_batch_gpu([s], max_rounds=1, device="cpu",
+                                stats=stats) == ([plain], 0)
+    assert _names(stats).count("round.kernel") == 1
+    assert _names(stats)[-1] == "fallback"
+
+
+def test_decode_stats_on_a_refused_stream_that_raises():
+    """A stream the host decoder rejects raises as untraced; the call's
+    spans are written and the recorder is gone."""
+    good = b"\x3b"
+    stats = {}
+    with pytest.raises(B.BrotliDecodeError):
+        decompress_batch_gpu([bytes([good[0] | 0x80])], device="cpu",
+                             stats=stats)
+    assert _off()
+    assert _names(stats)[0] == "decompress_batch_gpu"
+    assert _names(stats)[-1] == "fallback"
+    _assert_nested(stats["spans"])
+    assert _names(stats).count("fallback") == 1
+
+
+def test_decode_stats_keys():
+    stats = {}
+    assert decompress_batch_gpu([b"\x3b"], device="cpu", stats=stats) == (
+        [b""], 0)
+    assert set(stats) == {"wall_s", "spans", *B.DECODE_COUNTERS}
+    assert _names(stats) == ["decompress_batch_gpu", "walk.native",
+                             "walk.python", "assemble"]
