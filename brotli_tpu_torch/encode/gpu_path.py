@@ -5,11 +5,13 @@ Counterpart of brotli_tpu/encode/tpu_path.py's compress_tpu.  For each
 metablock span the device runs the content-sorted matcher
 (`_match_dense`: stable sort(s) + the CUDA fold kernel) over the span
 plus a window-covering halo of preceding bytes and returns its results
-in sorted space; the host inverts them (native invert_perm32 /
-invert_merge32), extends length-capped matches, adds static-dictionary
-candidates, runs the native greedy walk, plans the literal block split
-on the device (ops/split.py) and stores through the native metablock
-serializer.
+in sorted space, and the static-dictionary probe
+(ops/dict_probe_cuda.py) returns each span position's best dictionary
+candidate; the host inverts the matcher's results (native invert_perm32
+/ invert_merge32), extends length-capped matches, merges the dictionary
+candidates that beat them, runs the native greedy walk, plans the
+literal block split on the device (ops/split.py) and stores through the
+native metablock serializer.
 
 max_device=True also commits the parse on the device
 (`_match_parse_dense`: the fold with 6 attested rounds, then
@@ -28,10 +30,11 @@ inverts on the device: the host inversion is the runtime's.  The JAX
 package calls it unguarded there and raises (ROADMAP queue 3).
 
 Pipelining: up to three dispatches are in flight on one CUDA stream.
-A dispatch copies its row from pinned memory, runs the matcher and
-copies the results back into pinned buffers, all non-blocking, and
-records one event; the host waits on that event only when it needs the
-span, so it serializes span j while the device computes j+1 and j+2.
+A dispatch copies its row from pinned memory, runs the matcher and the
+dictionary probe and copies the results back into pinned buffers, all
+non-blocking, and records one event; the host waits on that event only
+when it needs the span, so it serializes span j while the device
+computes j+1 and j+2.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from .. import native_bridge as nb
 from ..core import constants as C
 from ..core.bitio import BitWriter
 from ..device import resolve_device
+from ..ops.dict_probe_cuda import dict_probe, merge_candidates
 from ..ops.fold_cuda import (best_matches_exact8_p, best_matches_exact9_p,
                              best_matches_exact_p)
 from ..ops.matching import floor_log2
@@ -57,10 +61,10 @@ from .command import resolve_commands
 from .match import greedy_parse
 from .metablock import choose_context_mode, choose_literal_context_map
 from .params import EncoderParams
-from .static_dict import add_dictionary_matches
 
 LEN_SHIFT = 26  # dist < 2^26 covers lgwin <= 24 (dist < 2^24 + slack)
 _MAX_INFLIGHT = 3
+DICT_COUNTERS = ("dict.positions", "dict.won")
 
 
 def _match_dense(row: torch.Tensor, min_pos: int, window_size: int,
@@ -166,12 +170,12 @@ def _commands_from_parse(visited, take, dist, real):
     return ins, cp_len, cp_dist, cp_len.copy()
 
 
-def _host_parse(sorted_out, row, halo, real, dlen, region, knobs,
-                window_size, cache):
+def _host_parse(sorted_out, dict_out, row, halo, real, dlen, region,
+                knobs, window_size, cache):
     """The host leg of one span's matches: invert (or merge) the
-    device's sorted-space outputs, extend length-capped matches, add
-    static-dictionary candidates and run the greedy walk.  Returns the
-    walk's segments."""
+    device's sorted-space outputs, extend length-capped matches, merge
+    the device's static-dictionary candidates and run the greedy walk.
+    Returns the walk's segments."""
     with trace.span("host_parse.invert"):
         if len(sorted_out) == 1:   # device_invert: position space
             packed = sorted_out[0][:real].astype(np.int64)
@@ -206,25 +210,15 @@ def _host_parse(sorted_out, row, halo, real, dlen, region, knobs,
                     np.log2(np.maximum(bd, 2))).astype(np.int64),
                 0)
     with trace.span("host_parse.dict_probe"):
-        # union static-dictionary candidates (the device searches the
-        # window only)
-        fl = np.zeros(dlen + real, np.int64)
-        fd = np.zeros(dlen + real, np.int64)
-        fs = np.zeros(dlen + real, np.int64)
-        fi = np.zeros(dlen + real, bool)
-        fw = np.zeros(dlen + real, np.int64)
-        fl[dlen:] = bl
-        fd[dlen:] = bd
-        fs[dlen:] = bsc
-        fw[dlen:] = bl
-        add_dictionary_matches(region, dlen, window_size, 135, fl, fd, fs,
-                               fi, fw)
+        # the dictionary candidates that beat the window's match
+        isdict, wire, won = merge_candidates(dict_out, bl, bd, bsc)
+        trace.count("dict.positions", real)
+        trace.count("dict.won", won)
     with trace.span("host_parse.walk"):
-        return greedy_parse(region, fl[dlen:], fd[dlen:], fs[dlen:], [real],
-                            dict_len=dlen, pos0=0,
-                            initial_cache=tuple(cache),
-                            best_isdict=fi[dlen:], window_size=window_size,
-                            best_wire=fw[dlen:])
+        return greedy_parse(region, bl, bd, bsc, [real], dict_len=dlen,
+                            pos0=0, initial_cache=tuple(cache),
+                            best_isdict=isdict, window_size=window_size,
+                            best_wire=wire)
 
 
 class _Pipeline:
@@ -327,7 +321,8 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
           host_parse             the host leg of one span's matches, with
             host_parse.invert      the inversion (or merge) to positions
             host_parse.extend      the extension of capped lengths, scores
-            host_parse.dict_probe  the static-dictionary candidates
+            host_parse.dict_probe  the merge of the device's
+                                   static-dictionary candidates
             host_parse.walk        the greedy walk
           store.context          the context mode and literal context map
           store.literals         the literal extraction
@@ -335,8 +330,11 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
           store.metablock        the native store and the bit append (no
                                  runtime: the Python planner and store)
           store.raw              a span stored uncompressed where the
-                                 native store refused it or grew it"""
-    with trace.recording("compress_gpu", stats,
+                                 native store refused it or grew it
+      dict.positions   the positions the dictionary probe took
+      dict.won         those whose dictionary candidate beat the
+                       window's match"""
+    with trace.recording("compress_gpu", stats, DICT_COUNTERS,
                          sums={"device_wait_s": "pipe.wait"}):
         dev = resolve_device(device)
         raw = np.frombuffer(bytes(data), dtype=np.uint8)
@@ -386,9 +384,13 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                                  else True)
 
                 def run(j, row_d):
-                    return _match_dense(row_d, int(min_pos[j]),
-                                        params.window_size, halo,
-                                        device_invert=device_invert, **knobs)
+                    out = _match_dense(row_d, int(min_pos[j]),
+                                       params.window_size, halo,
+                                       device_invert=device_invert, **knobs)
+                    real = min(span, n - starts[j])
+                    return (*out, dict_probe(row_d, halo, real,
+                                             int(min_pos[j]),
+                                             params.window_size))
 
             pipe = _Pipeline(rows, dev, run)
         for j in range(min(_MAX_INFLIGHT, len(starts))):
@@ -397,9 +399,10 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
         cache = list(C.INITIAL_DISTANCE_CACHE)
         for j, s0 in enumerate(starts):
             # device results arrive in content-sorted space (pos_s,
-            # packed_s[, score_s] per fold) unless inverted on the device;
-            # max_device: (visited, take, dist) of the span
-            sorted_out = pipe.wait(j)
+            # packed_s[, score_s] per fold) unless inverted on the device,
+            # then the dictionary candidates; max_device: (visited, take,
+            # dist) of the span
+            outs = pipe.wait(j)
             if j + _MAX_INFLIGHT < len(starts):
                 pipe.dispatch(j + _MAX_INFLIGHT)
             real = min(span, n - s0)
@@ -413,11 +416,11 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
             region = row[mp0:halo + real]
             with trace.span("host_parse"):
                 if max_device:
-                    segs = [_commands_from_parse(*sorted_out, real)]
+                    segs = [_commands_from_parse(*outs, real)]
                 else:
-                    segs = _host_parse(sorted_out, row, halo, real, dlen,
-                                       region, knobs, params.window_size,
-                                       cache)
+                    segs = _host_parse(outs[:-1], outs[-1], row, halo, real,
+                                       dlen, region, knobs,
+                                       params.window_size, cache)
             ins, cps, dst, adv = segs[0]
             is_last = j == len(starts) - 1
             if not nb.available():

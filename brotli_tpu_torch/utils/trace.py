@@ -88,8 +88,8 @@ def span(name: str):
     return _OFF if rec is None else _Span(rec, name)
 
 
-def count(name: str):
-    """Adds one to the counter `name` when tracing."""
+def count(name: str, n: int = 1):
+    """Adds n to the counter `name` when tracing."""
     rec = _current.get()
     if rec is not None:
-        rec.counts[name] = rec.counts.get(name, 0) + 1
+        rec.counts[name] = rec.counts.get(name, 0) + n

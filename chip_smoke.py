@@ -6,8 +6,8 @@
 Builds the native runtime (native/*.cpp, g++; the run fails unless it
 builds and loads, so that no phase but the no-runtime one takes the
 pure-Python routes) and the CUDA kernels
-(brotli_tpu_torch/csrc/fold.cu, match_rounds.cu, decode_step.cu and
-radix_probe.cu, nvcc for sm_90a) side by side, reads the fewest
+(brotli_tpu_torch/csrc/fold.cu, match_rounds.cu, decode_step.cu,
+radix_probe.cu and dict_probe.cu, nvcc for sm_90a) side by side, reads the fewest
 instructions one step of decode_step executes from its SASS (cuobjdump;
 its bound counts the fewer of this and DS_STEP_INSNS, the first port's
 floor), makes a
@@ -58,7 +58,19 @@ noise, slowly varying integers, random bytes), then:
                 a small one: each equal to its plain version; with
                 decode_step's plan as launched (lanes a CTA, CTAs,
                 shared bytes) and microseconds a step of the longest
-                lane
+                lane; and dict_probe (compress_gpu's static-dictionary
+                probe) on the rows compress_gpu dispatches: a bulk
+                file's 4,718,592-byte row (a whole 512 KiB span at
+                lgwin 22) of the corpus in 64 KiB blocks of a seeded
+                order and of its repo text, and a web file's row of the
+                repo text at lgwin 15 (100,000 real positions of a
+                512 KiB span):
+                the candidates and the blocks' counts equal to the
+                plain version's word for word, the bound (the span's
+                real bytes read, 8 bytes a candidate and a count a
+                block written), and on the host the numpy probe it
+                replaces (static_dict.add_dictionary_matches over the
+                same region) and the merge of its candidates
   mirror phase  the fold mirrors of ops/matching.py (plain torch ops,
                 no kernel of the port) on the card, through
                 brotli_tpu_torch/research/fold_bench.run: the five
@@ -79,7 +91,9 @@ noise, slowly varying integers, random bytes), then:
                 are set to 0 just before it and read just after, and
                 each path must have launched each of its kernels
                 (compress_fast: the fold form of match_rounds twice a
-                full shard, once at k = 2 and once at k = 1); every
+                full shard, once at k = 2 and once at k = 1;
+                compress_gpu: dict_probe once a span, and never with
+                max_device); every
                 output must decode back (libbrotlidec when present,
                 else the port's native decoder)
   mesh phase    compress_mesh over 8 shards of 4 MiB (each behind a
@@ -222,7 +236,9 @@ under 1); the folds' rows also plan, ptxas, pairs, pairs_share,
 longest_lane_share, bound_ms_all_pairs and rows; the radix rows also
 host_us, the gathers' also library_device_ms, library_burst_ms,
 library_host_us and grid, hist8's also grid; decode_step's also grid
-(its plan), per_step_us, sass_step_floor and bound_ms_at_360; match_rounds' also plan and rounds (the fold
+(its plan), per_step_us, sass_step_floor and bound_ms_at_360;
+dict_probe's also plan, ptxas, positions, candidates, won_vs_none,
+host_numpy_ms, host_merge_ms and launches_by_quality; match_rounds' also plan and rounds (the fold
 form's also words, bound_ms_two_operand and, at k = 2, the matcher's
 matcher_busy_ms); step_probe's also grid, latency_bound_ms and
 step_cycles.  The line before the last is
@@ -263,6 +279,9 @@ REPLACES = "brotli_tpu/ops/fold_pallas.py:250"
 MR_SRC = "brotli_tpu_torch/csrc/match_rounds.cu"
 MR_REPLACES = "brotli_tpu/ops/pallas_match.py:62"
 DS_SRC = "brotli_tpu_torch/csrc/decode_step.cu"
+DP_SRC = "brotli_tpu_torch/csrc/dict_probe.cu"
+DP_REPLACES = ("none (brotli_tpu/encode/static_dict.py:"
+               "add_dictionary_matches, numpy on the host)")
 DS_REPLACES = "brotli_tpu/ops/decode_tpu.py:450"
 SP_REPLACES = "research/decode_step_kernel_probe.py:94"
 RP_SRC = "brotli_tpu_torch/csrc/radix_probe.cu"
@@ -292,6 +311,15 @@ TOOLS_BILL_KIB = 512        # billing.account's q9 stream
 TOOLS_REFUSED_MIB = 2       # the low-entropy input the native store refuses
 NO_RUNTIME_TIMEOUT = 600    # the no-runtime phase's child process, seconds
 MESH_ROW = 8 << 20          # a shard row: a 4 MiB halo and 4 MiB shard
+# dict_probe's rows: (name, source, row bytes, halo, real, min_pos,
+# window); "mixed" is the corpus in 64 KiB blocks of a seeded order,
+# "text" the corpus's head (repo text)
+DP_ROWS = [("bulk", "mixed", ROW, ROW - (1 << 19), 1 << 19, 0,
+            (1 << 22) - 16),
+           ("text", "text", ROW, ROW - (1 << 19), 1 << 19, 0,
+            (1 << 22) - 16),
+           ("web", "text", (1 << 15) + (1 << 19), 1 << 15, 100_000,
+            1 << 15, (1 << 15) - 16)]
 # compress_mesh's folds by quality (fold_cuda.config_name)
 MESH_FOLDS = {5: ["fold_k1p3_f32b0"],
               9: ["fold_k2p2_f16b8", "fold_k1p1_f16b0"]}
@@ -315,12 +343,13 @@ def card_line() -> str:
 
 
 def build_all():
-    """Native runtime and the four CUDA kernel sources, compiled side by
-    side; returns the paths of the built decode_step and fold
-    libraries."""
+    """Native runtime and the five CUDA kernel sources, compiled side by
+    side; returns the paths of the built decode_step, fold and
+    dict_probe libraries."""
     from brotli_tpu_torch import native_bridge as nb
-    from brotli_tpu_torch.ops import (decode_gpu, fold_cuda,
-                                      match_rounds_cuda, radix_cuda)
+    from brotli_tpu_torch.ops import (decode_gpu, dict_probe_cuda,
+                                      fold_cuda, match_rounds_cuda,
+                                      radix_cuda)
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -330,14 +359,15 @@ def build_all():
     builds = {"native": nb.build, "fold.cu": fold_cuda.LIB.build,
               "match_rounds.cu": match_rounds_cuda.LIB.build,
               "decode_step.cu": decode_gpu.LIB.build,
-              "radix_probe.cu": radix_cuda.LIB.build}
+              "radix_probe.cu": radix_cuda.LIB.build,
+              "dict_probe.cu": dict_probe_cuda.LIB.build}
     with ThreadPoolExecutor(len(builds)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in builds.items()}
         done = {k: f.result() for k, f in futs.items()}
     log("build: " + ", ".join(f"{k} {t:.1f} s" for k, (_, t) in
                               done.items()))
     for k in ("fold.cu", "match_rounds.cu", "decode_step.cu",
-              "radix_probe.cu"):
+              "radix_probe.cu", "dict_probe.cu"):
         fn = "?"
         for ln in done[k][0][1].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -346,7 +376,8 @@ def build_all():
             elif "registers" in ln or "stack frame" in ln:
                 log(f"  ptxas {k} {fn}:", ln.strip().removeprefix(
                     "ptxas info    : "))
-    return done["decode_step.cu"][0][0], done["fold.cu"][0][0]
+    return (done["decode_step.cu"][0][0], done["fold.cu"][0][0],
+            done["dict_probe.cu"][0][0])
 
 
 def resource_usage(lib_path: str) -> dict:
@@ -533,6 +564,91 @@ def kernel_phase(corpus, dev, fold_ptxas, configs, rows):
     return results
 
 
+def dict_probe_phase(corpus, dev, dp_ptxas):
+    """The static-dictionary probe on each of DP_ROWS, kernel against
+    the plain version on the same row; on the host, the numpy probe it
+    replaces and the merge of its output.  Returns each row's entry."""
+    import numpy as np
+    import torch
+
+    from brotli_tpu_torch.encode.static_dict import add_dictionary_matches
+    from brotli_tpu_torch.ops import dict_probe_cuda as DP
+    if "registers" not in dp_ptxas.get("dict_probe_kernel", {}):
+        raise AssertionError("no resource usage of dict_probe_kernel in "
+                             "the dict_probe library")
+    text = np.frombuffer(corpus, np.uint8)
+    blocks = text.reshape(-1, 1 << 16)
+    sources = {"text": text, "mixed": blocks[np.random.default_rng(SEED)
+                                             .permutation(len(blocks))]
+               .ravel()}
+
+    def host_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[reps // 2]
+
+    results = {}
+    for name, src, n, halo, real, min_pos, window in DP_ROWS:
+        row = sources[src][:n].copy()
+        row[halo + real:] = 0          # a short last span's zero tail
+        row_d = torch.from_numpy(row).to(dev)
+
+        def kern():
+            return DP.dict_probe(row_d, halo, real, min_pos, window)
+
+        def plain():
+            return DP.dict_probe_ref(row_d, halo, real, min_pos, window)
+
+        out = kern().cpu().numpy()
+        plan = DP.probe_plan(n - halo)
+        got, want = DP.candidates(out), DP.candidates(plain().cpu().numpy())
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"dict_probe {name}: kernel != "
+                                 "dict_probe_ref in its candidates or "
+                                 "counts")
+        cand = len(got[1])
+        if cand == 0:
+            raise AssertionError(f"dict_probe {name}: no candidates")
+        zeros = np.zeros(real, np.int64)
+        won = DP.merge_candidates(out, zeros.copy(), zeros.copy(),
+                                  zeros.copy())[2]
+        ms = median_ms(kern, 15)
+        dt = device_times(kern, "dict_probe_kernel")
+        plain_ms = median_ms(plain, 5)
+        # bound: the span's real bytes read once; 8 bytes a candidate and
+        # a count a block written (the index stays in L2)
+        bound_ms, by = _bound(real + 8 * (cand + plan["ctas"]), 0)
+        region, dlen = row[min_pos:halo + real], halo - min_pos
+
+        def numpy_probe():
+            arrs = [np.zeros(dlen + real, np.int64) for _ in range(3)] + [
+                np.zeros(dlen + real, bool), np.zeros(dlen + real, np.int64)]
+            add_dictionary_matches(region, dlen, window, 135, *arrs)
+
+        results[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            max_abs_err=0, plan=plan,
+            ptxas=dict(kernel="dict_probe_kernel",
+                       **dp_ptxas["dict_probe_kernel"]),
+            positions=real, candidates=cand, won_vs_none=won,
+            host_numpy_ms=host_ms(numpy_probe, 3),
+            host_merge_ms=host_ms(lambda: DP.merge_candidates(
+                out, zeros.copy(), zeros.copy(), zeros.copy()), 15), **dt)
+        log(f"kernel dict_probe {name}: equal to dict_probe_ref on "
+            f"{real} positions of a {n}-byte row ({cand} candidates, "
+            f"{won} taken against no window match); kernel {ms:.4f} ms "
+            f"(device {dt['device_ms']:.5f}, burst {dt['burst_ms']:.4f}), "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({by}); "
+            f"host: numpy probe {results[name]['host_numpy_ms']:.2f} ms, "
+            f"merge {results[name]['host_merge_ms']:.3f} ms; plan "
+            f"{json.dumps(plan)}; ptxas {json.dumps(results[name]['ptxas'])}")
+        del row_d
+    return results
+
+
 def match_rounds_phase(corpus, dev):
     """match_rounds at compress_fast's shape, R = 8 rounds of the first
     shard's sorted chunk values: the fold form on the h4 order at k = 2
@@ -695,22 +811,30 @@ def path_phase(corpus, dev):
 
     from brotli_tpu_torch import compress_fast, compress_gpu
     from brotli_tpu_torch.encode import fast as FAST
+    from brotli_tpu_torch.ops import dict_probe_cuda as DP
     from brotli_tpu_torch.ops import fold_cuda as F
     from brotli_tpu_torch.ops import match_rounds_cuda as MR
     name, decode = _decoder()
-    launches = {}
+    launches = {"dict_probe": {}}
 
-    # compress_gpu, q2-q9 tiers
+    # compress_gpu, q2-q9 tiers: dict_probe once a span
     F.LAUNCHES.clear()
     outs = {}
     for q in (5, 7, 9):
         stats = {}
+        DP.LAUNCHES = 0
         t0 = time.perf_counter()
         outs[q] = compress_gpu(corpus, quality=q, lgwin=22, stats=stats,
                                device=dev)
         _report(f"q{q}", corpus, outs[q], time.perf_counter() - t0, stats)
+        spans = [s[0] for s in stats["spans"]].count("host_parse")
+        if DP.LAUNCHES != spans or spans == 0:
+            raise AssertionError(f"compress_gpu q{q}: {DP.LAUNCHES} "
+                                 f"launches of dict_probe, want {spans}")
+        launches["dict_probe"][f"q{q}"] = DP.LAUNCHES
     launches["gpu"] = dict(F.LAUNCHES)
-    log(f"path compress_gpu launches: {json.dumps(launches['gpu'])}")
+    log(f"path compress_gpu launches: {json.dumps(launches['gpu'])}, "
+        f"dict_probe {json.dumps(launches['dict_probe'])}")
     for q, out in outs.items():
         _round_trip(name, decode, out, corpus, f"q{q}")
 
@@ -753,8 +877,10 @@ def path_phase(corpus, dev):
     for q, out in outs.items():
         _round_trip(name, decode, out, corpus, f"compress_fast q{q}")
 
-    # compress_gpu max_device: match and parse on the device
+    # compress_gpu max_device: match and parse on the device, no
+    # dictionary probe
     F.LAUNCHES.clear()
+    DP.LAUNCHES = 0
     outs = {}
     for q in (5, 9):
         stats = {}
@@ -763,6 +889,10 @@ def path_phase(corpus, dev):
                                max_device=True, device=dev)
         _report(f"max_device q{q}", corpus, outs[q],
                 time.perf_counter() - t0, stats)
+    if DP.LAUNCHES != 0:
+        raise AssertionError(f"max_device: {DP.LAUNCHES} launches of "
+                             "dict_probe, want 0")
+    launches["dict_probe"]["max_device"] = DP.LAUNCHES
     launches["max_device"] = dict(F.LAUNCHES)
     log(f"path max_device launches: {json.dumps(launches['max_device'])}")
     for q, out in outs.items():
@@ -2083,7 +2213,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}, numpy {numpy.__version__}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    ds_lib, fold_lib = build_all()
+    ds_lib, fold_lib, dp_lib = build_all()
     from brotli_tpu_torch import native_bridge as nb
     if not nb.available() or nb._lib is None:
         raise AssertionError("the native runtime did not build or load")
@@ -2106,6 +2236,7 @@ def main() -> int:
     mr_timings = match_rounds_phase(corpus, dev)
     sp_timings = step_probe_phase(dev)
     ds_lanes64 = decode_kernel_phase(corpus, dev, enc, step_insns)
+    dp_timings = dict_probe_phase(corpus, dev, resource_usage(dp_lib))
     log(f"kernel phase wall: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     mirror_phase(corpus, dev, card)
@@ -2181,6 +2312,12 @@ def main() -> int:
     for reads, t in sp_timings.items():
         kernels.append(dict(name=f"step_probe reads={reads}", route="cuda",
                             source=DS_SRC, replaces=SP_REPLACES,
+                            library_ms=None, **t))
+    for name, t in dp_timings.items():
+        kernels.append(dict(name=f"dict_probe {name}", route="cuda",
+                            source=DP_SRC, replaces=DP_REPLACES,
+                            launches=launches["dict_probe"]["q5"],
+                            launches_by_quality=launches["dict_probe"],
                             library_ms=None, **t))
     kernels += radix_kernels
     for k in kernels:

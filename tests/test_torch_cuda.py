@@ -1,9 +1,10 @@
 """brotli_tpu_torch on the card: the CUDA kernels (fold, also at the
-edges of its design, match_rounds in both forms, decode_step,
-step_probe on its plan's grid, the radix probes' five primitives,
-hist8 also on its edge inputs) against their plain versions, the
-latency probe, and the compress, multi-shard and batch-decode paths,
-the shard pipelines and the entry points on CUDA against the CPU;
+edges of its design, the static-dictionary probe, match_rounds in both
+forms, decode_step, step_probe on its plan's grid, the radix probes'
+five primitives, hist8 also on its edge inputs) against their plain
+versions, the latency probe, and the compress, multi-shard and
+batch-decode paths, the shard pipelines and the entry points on CUDA
+against the CPU;
 the fold mirrors of ops/matching.py on the card against their CPU
 results and against the CUDA tier wrappers.
 
@@ -25,12 +26,14 @@ from brotli_tpu_torch import (compress_fast, compress_gpu, compress_mesh,
 from brotli_tpu_torch import entry as E
 from brotli_tpu_torch.decode import batch_gpu as B
 from brotli_tpu_torch.ops import decode_gpu as D
+from brotli_tpu_torch.ops import dict_probe_cuda as DP
 from brotli_tpu_torch.ops import fold_cuda as F
 from brotli_tpu_torch.ops import match_rounds_cuda as MR
 from brotli_tpu_torch.ops import matching as TM
 from brotli_tpu_torch.ops import radix_cuda as RC
 from brotli_tpu_torch.parallel import mesh as M
 from brotli_tpu_torch.research import hist8_ab as H8
+from brotli_tpu_torch.research.corpus import ROOT, make_corpus
 
 from .fold_edges import CASES as FOLD_CASES
 from .fold_edges import CONFIGS as FOLD_CONFIGS
@@ -158,6 +161,76 @@ def test_compress_gpu_card_matches_cpu(quality):
     data = _data(300_000, seed=quality).tobytes()
     got = compress_gpu(data, quality=quality, span=1 << 16, device=dev)
     assert got == compress_gpu(data, quality=quality, span=1 << 16,
+                               device="cpu")
+
+
+# (row bytes, halo, real, min_pos, window): a bulk file's 4,718,592-byte
+# row (lgwin 22, a whole 512 KiB span), and web-sized rows at lgwin 15
+# (a first span, and a later one whose halo is half filled), of the bulk
+# mix in 64 KiB blocks of a seeded order
+DICT_ROWS = {"bulk": (4_718_592, 4_194_304, 524_288, 0, (1 << 22) - 16),
+             "web": (557_056, 32_768, 100_000, 32_768, (1 << 15) - 16),
+             "web_later": (557_056, 32_768, 50_001, 16_384,
+                           (1 << 15) - 16)}
+
+
+def _mix(n: int, seed: int) -> np.ndarray:
+    """n bytes of the bulk mix (research/corpus.py) in 64 KiB blocks of
+    a seeded order."""
+    corpus = np.frombuffer(make_corpus(-(-n >> 20) + 1, seed), np.uint8)
+    blocks = corpus[:len(corpus) >> 16 << 16].reshape(-1, 1 << 16)
+    order = np.random.default_rng(seed).permutation(len(blocks))
+    return np.ascontiguousarray(blocks[order].ravel()[:n])
+
+
+@pytest.mark.parametrize("shape", list(DICT_ROWS))
+def test_dict_probe_kernel_matches_ref(shape):
+    """The probe's output equals its plain version's on the card in
+    every word it defines: each block's candidates and its count."""
+    dev = _card()
+    n, halo, real, min_pos, window = DICT_ROWS[shape]
+    row = _mix(n, seed=len(shape))
+    row[halo + real:] = 0          # a short last span's zero tail
+    row_d = torch.from_numpy(row).to(dev)
+    before = DP.LAUNCHES
+    got = DP.dict_probe(row_d, halo, real, min_pos, window)
+    assert DP.LAUNCHES == before + 1
+    want = DP.dict_probe_ref(row_d, halo, real, min_pos, window)
+    torch.cuda.synchronize()
+    span = n - halo
+    assert got.shape == (span + DP.probe_plan(span)["ctas"],)
+    (gc, gw), (wc, ww) = (DP.candidates(t.cpu().numpy())
+                          for t in (got, want))
+    assert np.array_equal(gc, wc) and np.array_equal(gw, ww)
+    assert len(gw) > 100
+
+
+def test_dict_probe_launches_once_per_dispatch():
+    """compress_gpu probes each span once on the card; max_device, which
+    has no dictionary, never."""
+    dev = _card()
+    data = _data(300_000, seed=3).tobytes()
+    for quality in (2, 5, 7, 9):
+        before = DP.LAUNCHES
+        compress_gpu(data, quality=quality, span=1 << 16, device=dev)
+        assert DP.LAUNCHES - before == -(-len(data) // (1 << 16))
+    before = DP.LAUNCHES
+    compress_gpu(data, quality=5, span=1 << 16, max_device=True, device=dev)
+    assert DP.LAUNCHES == before
+
+
+@pytest.mark.parametrize("quality", [5, 7, 9])
+def test_compress_gpu_card_matches_cpu_on_text(quality):
+    """Dictionary-dense English text (the repo's docs): the dictionary
+    takes many positions, and the card's stream equals the CPU's."""
+    dev = _card()
+    data = b"".join(open(f"{ROOT}/{name}", "rb").read()
+                    for name in ("SURVEY.md", "README.md"))
+    stats = {}
+    got = compress_gpu(data, quality=quality, span=1 << 15, stats=stats,
+                       device=dev)
+    assert stats["dict.won"] > len(data) // 100
+    assert got == compress_gpu(data, quality=quality, span=1 << 15,
                                device="cpu")
 
 

@@ -204,8 +204,8 @@ def test_compress_gpu_span_counts_exact(quality):
 @pytest.mark.parametrize("invert", ["0", "1"])
 def test_compress_gpu_host_leg_calls_inside_their_spans(invert,
                                                         monkeypatch):
-    """The inversion, the cap extension and the dictionary probe run
-    inside the host_parse children that name them."""
+    """The inversion, the cap extension and the merge of the dictionary
+    candidates run inside the host_parse children that name them."""
     monkeypatch.setenv("BROTLI_TPU_TORCH_DEVICE_INVERT", invert)
     calls = {"host_parse.invert": [], "host_parse.extend": [],
              "host_parse.dict_probe": []}
@@ -220,9 +220,8 @@ def test_compress_gpu_host_leg_calls_inside_their_spans(invert,
                         spy(nb.invert_perm32, "host_parse.invert"))
     monkeypatch.setattr(nb, "extend_caps",
                         spy(nb.extend_caps, "host_parse.extend"))
-    monkeypatch.setattr(G, "add_dictionary_matches",
-                        spy(G.add_dictionary_matches,
-                            "host_parse.dict_probe"))
+    monkeypatch.setattr(G, "merge_candidates",
+                        spy(G.merge_candidates, "host_parse.dict_probe"))
     stats = {}
     compress_gpu(DATA, quality=5, span=SPAN, stats=stats, device="cpu")
     n_spans = -(-len(DATA) // SPAN)
@@ -265,7 +264,21 @@ def test_compress_gpu_no_runtime_spans(monkeypatch):
 
 def test_compress_gpu_stats_keys():
     stats = _traced_compress(4)
-    assert set(stats) == {"wall_s", "device_wait_s", "spans"}
+    assert set(stats) == {"wall_s", "device_wait_s", "spans",
+                          *G.DICT_COUNTERS}
+
+
+@pytest.mark.parametrize("quality,max_device", [
+    (2, False), (5, False), (9, False), (5, True)])
+def test_compress_gpu_dict_counters(quality, max_device):
+    """The probe takes every position once and the dictionary some of
+    the text's positions; max_device probes nothing."""
+    stats = _traced_compress(quality, max_device=max_device)
+    if max_device:
+        assert [stats[k] for k in G.DICT_COUNTERS] == [0, 0]
+        return
+    assert stats["dict.positions"] == len(DATA)
+    assert 0 < stats["dict.won"] < len(DATA)
 
 
 # -- decompress_batch_gpu ----------------------------------------------
