@@ -18,7 +18,9 @@ max_device=True also commits the parse on the device
 ops/parse.committed_parse's pointer doubling over 4096-byte
 sub-blocks); the host only assembles commands and stores them, at a
 ratio cost (copies cap at 24 bytes, parses cut at sub-block seams, no
-static dictionary).
+static dictionary).  A copy is cut at the span's last real byte as at
+a seam, after it is scored: the zero fill after a short last span is
+not data.
 
 Where the host runtime is not in use (native_bridge.available()
 false) the device leg is unchanged, and the host leg takes the JAX
@@ -65,6 +67,7 @@ from .params import EncoderParams
 LEN_SHIFT = 26  # dist < 2^26 covers lgwin <= 24 (dist < 2^24 + slack)
 _MAX_INFLIGHT = 3
 DICT_COUNTERS = ("dict.positions", "dict.won")
+PARSE_COUNTERS = ("parse.positions", "parse.copied")
 
 
 def _match_dense(row: torch.Tensor, min_pos: int, window_size: int,
@@ -137,18 +140,24 @@ def _device_knobs(quality: int):
 
 
 def _match_parse_dense(row: torch.Tensor, min_pos: int, window_size: int,
-                       halo: int, k: int, rounds: int):
+                       halo: int, k: int, rounds: int, real: int):
     """max_device matcher: the fold, inverted on the device, then the
     greedy parse committed on the device over 4096-byte sub-blocks.
-    Returns (visited, take, dist) for the row's [halo:] span."""
+    A copy is cut at the span's `real` bytes as at a seam (after the
+    score; in a full span the seam cut is the same).  Returns (visited,
+    take, dist) for the row's [halo:] span."""
     packed = best_matches_exact_p(row, window_size, k=k, rounds=rounds,
                                   min_pos=min_pos,
                                   len_shift=LEN_SHIFT)[halo:]
-    bl = packed >> LEN_SHIFT
-    bd = packed & ((1 << LEN_SHIFT) - 1)
-    logd = floor_log2(torch.clamp(bd, min=1))
-    score = torch.where(bl > 0, 135 * bl - 30 * logd, 0)
-    visited, take = committed_parse(bl, score, 4096)
+    with trace.span("pipe.parse"):
+        bl = packed >> LEN_SHIFT
+        bd = packed & ((1 << LEN_SHIFT) - 1)
+        logd = floor_log2(torch.clamp(bd, min=1))
+        score = torch.where(bl > 0, 135 * bl - 30 * logd, 0)
+        left = real - torch.arange(packed.shape[0], dtype=torch.int32,
+                                   device=packed.device)
+        bl = torch.clamp(torch.minimum(bl, left), min=0)
+        visited, take = committed_parse(bl, score, 4096)
     return visited, take, bd
 
 
@@ -317,6 +326,8 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                                  buffers)
           pipe.dispatch          the pinned row copy and the enqueue (on
                                  the CPU: the matcher itself)
+            pipe.parse             max_device: the scores and
+                                   committed_parse (enqueued on CUDA)
           pipe.wait              the wait on a dispatch's event
           host_parse             the host leg of one span's matches, with
             host_parse.invert      the inversion (or merge) to positions
@@ -324,6 +335,8 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
             host_parse.dict_probe  the merge of the device's
                                    static-dictionary candidates
             host_parse.walk        the greedy walk
+            host_parse.commands    max_device: the commands of the
+                                   device's parse (its only child)
           store.context          the context mode and literal context map
           store.literals         the literal extraction
           store.split            the literal block split on the device
@@ -333,8 +346,12 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                                  native store refused it or grew it
       dict.positions   the positions the dictionary probe took
       dict.won         those whose dictionary candidate beat the
-                       window's match"""
-    with trace.recording("compress_gpu", stats, DICT_COUNTERS,
+                       window's match
+      parse.positions  max_device: the positions the device's parse
+                       committed over
+      parse.copied     those its copies cover"""
+    with trace.recording("compress_gpu", stats,
+                         DICT_COUNTERS + PARSE_COUNTERS,
                          sums={"device_wait_s": "pipe.wait"}):
         dev = resolve_device(device)
         raw = np.frombuffer(bytes(data), dtype=np.uint8)
@@ -376,7 +393,8 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                     return _match_parse_dense(row_d, int(min_pos[j]),
                                               params.window_size, halo,
                                               k=knobs["k"],
-                                              rounds=max(knobs["rounds"], 6))
+                                              rounds=max(knobs["rounds"], 6),
+                                              real=min(span, n - starts[j]))
             else:
                 # the host inversion is the runtime's: without it, invert on
                 # the device
@@ -416,7 +434,11 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
             region = row[mp0:halo + real]
             with trace.span("host_parse"):
                 if max_device:
-                    segs = [_commands_from_parse(*outs, real)]
+                    with trace.span("host_parse.commands"):
+                        segs = [_commands_from_parse(*outs, real)]
+                    if trace.on():
+                        trace.count("parse.positions", real)
+                        trace.count("parse.copied", int(segs[0][1].sum()))
                 else:
                     segs = _host_parse(outs[:-1], outs[-1], row, halo, real,
                                        dlen, region, knobs,

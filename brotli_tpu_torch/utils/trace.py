@@ -12,9 +12,9 @@ the order the spans opened, with the index of the span open around each
 `sums`, the summed length of the spans `name` in seconds.
 Times are time.perf_counter_ns(), the host clock perf_counter reads.
 
-Everywhere below an entry, `span(name)` and `count(name)` cost one
-ContextVar lookup and one `is None` test where no recorder is current:
-no clock read, no allocation.
+Everywhere below an entry, `span(name)`, `count(name)` and `on()` cost
+one ContextVar lookup and one `is None` test where no recorder is
+current: no clock read, no allocation.
 """
 
 from __future__ import annotations
@@ -86,6 +86,12 @@ def span(name: str):
     """`with span(name):` records the block as a span when tracing."""
     rec = _current.get()
     return _OFF if rec is None else _Span(rec, name)
+
+
+def on() -> bool:
+    """Whether a recorder is current: guards a count whose value costs
+    work to compute."""
+    return _current.get() is not None
 
 
 def count(name: str, n: int = 1):

@@ -95,7 +95,11 @@ noise, slowly varying integers, random bytes), then:
                 compress_gpu: dict_probe once a span, and never with
                 max_device); every
                 output must decode back (libbrotlidec when present,
-                else the port's native decoder)
+                else the port's native decoder); max_device's q5 and q9
+                again with the card's parse held, span by span, to the
+                plain walk of perfbench/plain_parse.py over the card's
+                fold outputs (perfbench/card_parse.py), the stream equal
+                to the timed call's
   mesh phase    compress_mesh over 8 shards of 4 MiB (each behind a
                 4 MiB halo) on the card at lgwin 22, q5 and q9: the
                 fold's launch counts set to 0 just before each call and
@@ -897,6 +901,21 @@ def path_phase(corpus, dev):
     log(f"path max_device launches: {json.dumps(launches['max_device'])}")
     for q, out in outs.items():
         _round_trip(name, decode, out, corpus, f"max_device q{q}")
+    # the card's parse against the plain walk, untimed: the spans' fold
+    # outputs are copied back as they pass
+    sys.path.append(os.path.join(ROOT, "perfbench"))
+    import card_parse
+    for q, out in outs.items():
+        again, fig = card_parse.checked_compress(corpus, quality=q,
+                                                 lgwin=22, device=dev)
+        if again != out:
+            raise AssertionError(f"max_device q{q}: the checked call's "
+                                 "stream differs from the timed call's")
+        log(f"path max_device q{q}: parse equal to perfbench/"
+            f"plain_parse.py on {fig['spans']} spans ({fig['commands']} "
+            f"commands; copies cover {fig['copied']} of "
+            f"{fig['positions']} positions, "
+            f"{100 * fig['copied'] / fig['positions']:.4f}%)")
     log(f"path round trips: ok through {name}")
     return launches
 

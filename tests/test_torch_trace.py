@@ -34,9 +34,10 @@ RANDOM = np.random.default_rng(182).integers(0, 256, SPAN, np.uint8).tobytes()
 DATA = TEXT[:2 * SPAN] + RANDOM + TEXT[2 * SPAN:]
 
 COMPRESS_SPANS = {"compress_gpu", "entry.rows", "entry.call_setup",
-                  "pipe.dispatch", "pipe.wait", "host_parse",
+                  "pipe.dispatch", "pipe.parse", "pipe.wait", "host_parse",
                   "host_parse.invert", "host_parse.extend",
                   "host_parse.dict_probe", "host_parse.walk",
+                  "host_parse.commands",
                   "store.context", "store.literals", "store.split",
                   "store.metablock", "store.raw"}
 DECODE_SPANS = {"decompress_batch_gpu", "walk.native", "walk.python",
@@ -178,10 +179,13 @@ def test_compress_gpu_spans_nest(quality, max_device):
             assert parent == 0, name
     kids = [names[k] for k, s in enumerate(spans) if s[1] >= 0
             and spans[s[1]][0] == "host_parse"]
-    want = [] if max_device else ["host_parse.invert", "host_parse.extend",
-                                  "host_parse.dict_probe",
-                                  "host_parse.walk"] * n_spans
+    want = ["host_parse.commands"] * n_spans if max_device else [
+        "host_parse.invert", "host_parse.extend", "host_parse.dict_probe",
+        "host_parse.walk"] * n_spans
     assert kids == want
+    # max_device: the device parse, once a span, inside its dispatch
+    parse = [spans[s[1]][0] for s in spans if s[0] == "pipe.parse"]
+    assert parse == ["pipe.dispatch"] * (n_spans if max_device else 0)
     root = spans[0]
     assert stats["wall_s"] == (root[3] - root[2]) / 1e9
     waits = sum(s[3] - s[2] for s in spans if s[0] == "pipe.wait")
@@ -265,7 +269,7 @@ def test_compress_gpu_no_runtime_spans(monkeypatch):
 def test_compress_gpu_stats_keys():
     stats = _traced_compress(4)
     assert set(stats) == {"wall_s", "device_wait_s", "spans",
-                          *G.DICT_COUNTERS}
+                          *G.DICT_COUNTERS, *G.PARSE_COUNTERS}
 
 
 @pytest.mark.parametrize("quality,max_device", [
@@ -279,6 +283,19 @@ def test_compress_gpu_dict_counters(quality, max_device):
         return
     assert stats["dict.positions"] == len(DATA)
     assert 0 < stats["dict.won"] < len(DATA)
+
+
+@pytest.mark.parametrize("quality,max_device", [
+    (5, False), (9, False), (2, True), (5, True), (9, True)])
+def test_compress_gpu_parse_counters(quality, max_device):
+    """max_device's parse covers every input position once, its copies
+    some of them; the default path counts none."""
+    stats = _traced_compress(quality, max_device=max_device)
+    if not max_device:
+        assert [stats[k] for k in G.PARSE_COUNTERS] == [0, 0]
+        return
+    assert stats["parse.positions"] == len(DATA)
+    assert 0 < stats["parse.copied"] < stats["parse.positions"]
 
 
 # -- decompress_batch_gpu ----------------------------------------------
