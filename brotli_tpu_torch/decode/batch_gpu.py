@@ -9,9 +9,12 @@ with extra bits and the distance ring) runs in one launch of the
 per-lane step kernel (ops/decode_gpu.py, csrc/decode_step.cu).  The
 host then replays each lane's (insert, copy, distance) commands over
 its literals (native LZ execution, or the Python loop where the runtime
-is not in use; every header walk is then the Python one).  A multi-metablock stream decodes
-over several device rounds: the device returns each lane's end bit and
-final distance ring, and the host walk resumes there.
+is not in use; every header walk is then the Python one).  A
+multi-metablock stream decodes over several device rounds: the device
+returns each lane's end bit and final distance ring, and the host walk
+resumes there.  Both walks, the first and the resumed, run natively
+(csrc/lane_walk.cpp) and fall back to the Python walk, whose plan,
+None or error then stands, where the native one refuses.
 
 A metablock can run on the device when it has one block type in all
 three categories and one literal tree and one distance tree (the
@@ -26,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native_bridge as nb
 from ..core import constants as C
 from ..core.bitio import BitReader, NeedsMoreInput
 from ..core.dictionary import get_dictionary
@@ -52,6 +56,29 @@ class _Lane:
             setattr(self, k, v)
 
 
+def _native_walk(data: bytes, bit_pos: int, window_size: int, cache,
+                 out_len: int):
+    """native_bridge.lane_walk's (segs, pending), as _walk_from would
+    return them, or None where it refuses.  bit_pos -1 walks from the
+    stream header (the window then comes from its WBITS)."""
+    r = nb.lane_walk(data, bit_pos, out_len)
+    if r is None:
+        return None
+    pre, lane = r
+    segs = [("bytes", data[off:off + ln]) for off, ln in pre]
+    if lane is None:
+        return segs, False
+    (bit0, mlen, wbits, npostfix, ndirect, out_prefix_len, is_final,
+     lit_len, cmd_len, dist_len) = lane
+    segs.append(("lane", _Lane(
+        stream_idx=-1, data=data, bit0=bit0, mlen=mlen,
+        window=(1 << wbits) - 16 if bit_pos < 0 else window_size,
+        npostfix=npostfix, ndirect=ndirect, lit_len=lit_len,
+        cmd_len=cmd_len, dist_len=dist_len, cache=list(cache),
+        out_prefix_len=out_prefix_len, is_final=is_final)))
+    return segs, not is_final
+
+
 def _try_parse_stream(data: bytes):
     """Walk one stream on the host.  Returns (plan, pending): plan is a
     list of segments, each ("bytes", b) literal output or ("lane",
@@ -59,29 +86,15 @@ def _try_parse_stream(data: bytes):
     device tier; pending is True when the walk stopped at a non-final
     compressed metablock (the caller resumes it with
     _resume_parse_stream once the device reports that lane's end bit
-    and final distance ring).  The native single-pass walk takes the
-    common case; the Python walk takes the resumable one, and every
-    case where the runtime is not in use."""
-    from .. import native_bridge as nb
-    r = None
+    and final distance ring).  The native walk takes the stream where
+    it can; the Python walk takes what it refuses, and every stream
+    where the runtime is not in use."""
     if nb.available():
         with trace.span("walk.native"):
-            r = nb.parse_lane_header(data)
-    if r is not None:
-        trace.count("walks_native")
-        meta, pre_segs, lit_len, cmd_len, dist_len = r
-        segs = [("bytes", data[off:off + ln]) for off, ln in pre_segs]
-        lane = _Lane(
-            stream_idx=-1, data=data, bit0=int(meta[0]), mlen=int(meta[1]),
-            window=(1 << int(meta[2])) - 16, npostfix=int(meta[3]),
-            ndirect=int(meta[4]), lit_len=lit_len.astype(np.int32),
-            cmd_len=cmd_len.astype(np.int32),
-            dist_len=dist_len.astype(np.int32),
-            cache=list(C.INITIAL_DISTANCE_CACHE),
-            out_prefix_len=int(meta[7]))
-        segs.append(("lane", lane))
-        return segs, False
-    # the native walk only takes a trailing compressed metablock
+            r = _native_walk(data, -1, 0, C.INITIAL_DISTANCE_CACHE, 0)
+        if r is not None:
+            trace.count("walks_native")
+            return r
     trace.count("walks_python")
     with trace.span("walk.python"):
         reader = BitReader(data)
@@ -93,7 +106,14 @@ def _try_parse_stream(data: bytes):
 def _resume_parse_stream(data: bytes, bit_pos: int, cache,
                          window_size: int, out_len: int):
     """Continue a paused walk right after a device-decoded metablock
-    (bit_pos: the device's end bit; cache: its final distance ring)."""
+    (bit_pos: the device's end bit; cache: its final distance ring),
+    natively where the native walk takes it, else in Python."""
+    if nb.available():
+        with trace.span("walk.native"):
+            r = _native_walk(data, bit_pos, window_size, cache, out_len)
+        if r is not None:
+            trace.count("walks_native")
+            return r
     trace.count("walks_resumed")
     with trace.span("walk.resume"):
         reader = BitReader(data)
@@ -182,7 +202,6 @@ def _reconstruct(lane: _Lane, prefix: bytes, lits: np.ndarray, nlit: int,
     metablocks; the device validated them against that length): the
     runtime's LZ execution, or the Python loop where it is not in
     use."""
-    from .. import native_bridge as nb
     if nb.available():
         body = nb.lz_execute(prefix, lits[:nlit], cmds[:ncmd], ncmd,
                              lane.window, lane.mlen)
@@ -281,10 +300,10 @@ def decompress_batch_gpu(streams, max_rounds: int = 8, device=None,
       spans   (name, parent index, t0_ns, t1_ns) on the perf_counter_ns
               clock, parent -1 for the root:
           decompress_batch_gpu  the call
-          walk.native           the native single-pass header walk (also
-                                one that declines the stream)
-          walk.python           the Python header walk
-          walk.resume           a paused walk resumed after a round
+          walk.native           the native header walk, first or resumed
+                                (also one that refuses the stream)
+          walk.python           a first walk in Python
+          walk.resume           a paused walk resumed in Python
           round.lanes           the lane arrays built and copied in
           round.kernel          the launch through the counts' read-back
           round.copy_back       the realized outputs to the host
@@ -292,9 +311,10 @@ def decompress_batch_gpu(streams, max_rounds: int = 8, device=None,
           assemble              the joins of a stream's output so far
           fallback              the host decoder on a refused stream
       and the counters
-          walks_native          first walks the native walk took
+          walks_native          walks, first or resumed, the native walk
+                                took
           walks_python          first walks in Python
-          walks_resumed         walks resumed after a round"""
+          walks_resumed         walks resumed in Python"""
     with trace.recording("decompress_batch_gpu", stats, DECODE_COUNTERS):
         dev = resolve_device(device)
         n_streams = len(streams)

@@ -4,7 +4,9 @@ native/*.cpp is compiled with g++ -O3 into brotli_tpu_torch/_build/
 (one object per source, compiled in parallel, then linked).  The
 library's file name carries a hash of the sources, the flags and the
 host CPU, so a checkout rebuilds whenever any of them changes and a
-library built for another CPU is never loaded.
+library built for another CPU is never loaded.  The port's own
+csrc/lane_walk.cpp (the batch decoder's header walk) is built the same
+way into a library of its own, at its first call.
 
 The no-runtime mode: with BROTLI_TPU_TORCH_NO_NATIVE set (to anything
 but "" or "0"), or where the build fails, available() is false and
@@ -14,8 +16,10 @@ command resolve, the optimal parser's DP and collectors, the metablock
 planner and store, the bit packer, the host decoders and the batch
 decoder's header walk and LZ execution.  The switch is read at every
 available() and get_lib() call; with it set nothing under native/ is
-compiled or loaded.  get_lib() then raises (it never returns None), so
-a binding called without the available() guard fails loudly.  The CUDA
+compiled or loaded, and the batch decoder, which calls lane_walk only
+where available(), builds no lane walk either.  get_lib() then raises
+(it never returns None), so a binding called without the available()
+guard fails loudly.  The CUDA
 kernels (csrc/*.cu, buildcache.py) are not part of the runtime: they
 build and launch in both modes.
 
@@ -23,8 +27,10 @@ Bound here: greedy_parse, extend_caps, encode_metablock,
 invert_perm32 / invert_merge32 (the host inversion of the device's
 sorted-space fold outputs), resolve_distance_codes and pack_bits (the
 q0/q1 trivial metablock store), decode (the host decoder), and the
-batch decoder's lane-header walk (parse_lane_header) and LZ execution
-of device-decoded commands (lz_execute).  For the host encoder
+batch decoder's header walk (lane_walk: csrc/lane_walk.cpp, which
+stops at the first compressed metablock, final or not, and resumes at
+a device lane's end bit) and LZ execution of device-decoded commands
+(lz_execute).  For the host encoder
 (encode/encoder.py): store_metablock (the optimized metablock
 planner), the whole-stream q0/q1 and q2/q3 pipelines
 (compress_fragment_pipeline, compress_session_pipeline), the
@@ -100,11 +106,11 @@ def _cpu_id() -> str:
         return platform.processor()
 
 
-def _build_key() -> str:
+def _build_key(paths) -> str:
     h = hashlib.sha256()
-    for name in _SOURCES + _HEADERS:
-        with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     h.update(" ".join(_CXXFLAGS).encode())
     h.update(_cpu_id().encode())
     return h.hexdigest()[:16]
@@ -138,7 +144,9 @@ def build() -> str:
     """Compile native/*.cpp (one g++ per source, side by side) into the
     build directory unless the library for the current key is there;
     returns the library's path."""
-    return build_once(f"libbrotli_native_{_build_key()}.so", _compile)[0]
+    key = _build_key(os.path.join(_NATIVE_DIR, name)
+                     for name in _SOURCES + _HEADERS)
+    return build_once(f"libbrotli_native_{key}.so", _compile)[0]
 
 
 NO_NATIVE_ENV = "BROTLI_TPU_TORCH_NO_NATIVE"
@@ -225,9 +233,6 @@ def _bind(lib) -> None:
     lib.lz_execute_native.restype = I64
     lib.lz_execute_native.argtypes = [U8P, I64, I32P, I64, I64, I64, I64,
                                       U8P]
-    lib.parse_lane_header_native.restype = I64
-    lib.parse_lane_header_native.argtypes = [U8P, I64, I64P, I64P, I64,
-                                             U8P, U8P, U8P]
     lib.decoder_set_dictionary.restype = None
     lib.decoder_set_dictionary.argtypes = [U8P, I64P, I64P, U8P, I64P,
                                            U8P, I64P, I64P, U8P, U8P]
@@ -480,31 +485,98 @@ def lz_execute(prefix: bytes, lits, cmds, ncmd: int, window: int,
     return buf[len(prefix):len(prefix) + int(mlen)].tobytes()
 
 
-def parse_lane_header(data: bytes):
-    """Native single-pass header walk of one stream for the batch
-    decoder: uncompressed and metadata metablocks, then one final
-    compressed metablock with one block type per category and one
-    literal and one distance tree.  Returns None when the stream does
-    not have that shape (or is truncated or corrupt), else (meta,
-    pre_segments, lit_len, cmd_len, dist_len) with meta = (bit0, mlen,
-    wbits, npostfix, ndirect, dist_alpha, n_pre, out_prefix_len) and
-    pre_segments the (byte offset, length) of the uncompressed
-    metablocks before it."""
-    lib = get_lib()
-    buf = np.frombuffer(bytes(data), np.uint8)
-    meta = np.zeros(8, np.int64)
-    pre = np.zeros(2 * 64, np.int64)
-    lit = np.zeros(256, np.uint8)
-    cmd = np.zeros(704, np.uint8)
-    dl = np.zeros(1024, np.uint8)
-    r = lib.parse_lane_header_native(
-        _ptr(buf, U8P), len(buf), _ptr(meta), _ptr(pre), 64,
-        _ptr(lit, U8P), _ptr(cmd, U8P), _ptr(dl, U8P))
-    if r != 1:
+_LANE_WALK_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "csrc", "lane_walk.cpp")
+LANE_WALK_MAX_PRE = 64
+_walk_fn = None
+_walk_error = None
+
+
+def _compile_lane_walk(out: str, work: str) -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("brotli_tpu_torch: g++ not found; the native "
+                           "lane walk cannot be built")
+    r = subprocess.run([cxx, *_CXXFLAGS, "-shared", _LANE_WALK_SRC, "-o",
+                        out], capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError("brotli_tpu_torch: lane walk build failed\n"
+                           + r.stdout[-2000:] + r.stderr[-2000:])
+    return r.stdout + r.stderr
+
+
+def _lane_walk_fn():
+    """csrc/lane_walk.cpp's C function, built with g++ at first use
+    (None where it did not build: warned about once)."""
+    global _walk_fn, _walk_error
+    if _walk_fn is None and _walk_error is None:
+        with _lock:
+            if _walk_fn is None and _walk_error is None:
+                try:
+                    path = build_once(
+                        f"liblane_walk_{_build_key([_LANE_WALK_SRC])}.so",
+                        _compile_lane_walk)[0]
+                    fn = ctypes.CDLL(path).lane_walk
+                except (OSError, RuntimeError,
+                        subprocess.SubprocessError) as e:
+                    _walk_error = e
+                    warnings.warn(f"brotli_tpu_torch: the native lane walk "
+                                  f"is unavailable, the Python walk runs "
+                                  f"instead: {e!r}", RuntimeWarning)
+                    return None
+                fn.restype = I64
+                fn.argtypes = [ctypes.c_char_p, I64, I64, I64,
+                               ctypes.c_void_p, ctypes.c_void_p, I64,
+                               ctypes.c_void_p]
+                _walk_fn = fn
+    return _walk_fn
+
+
+class _WalkBuffers(threading.local):
+    """lane_walk's outputs, one set a thread, reused by every call (520:
+    the largest distance alphabet, NPOSTFIX 3 and NDIRECT 120)."""
+
+    def __init__(self):
+        self.meta = np.zeros(9, np.int64)
+        self.pre = np.zeros(2 * LANE_WALK_MAX_PRE, np.int64)
+        self.lens = np.zeros(256 + 704 + 520, np.int32)
+        self.ptrs = (self.meta.ctypes.data, self.pre.ctypes.data,
+                     self.lens.ctypes.data)
+
+
+_walk_bufs = _WalkBuffers()
+
+
+def lane_walk(data: bytes, bit_pos: int = -1, out_len: int = 0):
+    """The batch decoder's header walk in csrc/lane_walk.cpp, from bit
+    0 through the stream header (bit_pos -1) or from a resume's bit_pos
+    with out_len output bytes so far: past uncompressed and metadata
+    metablocks to the first compressed metablock, final or not.
+
+    Returns None where the walk refuses (more than one block type or
+    tree, truncation, corruption, more than LANE_WALK_MAX_PRE
+    uncompressed metablocks; batch_gpu's Python walk then runs), else
+    (pre, lane): pre the (byte offset, length) of each uncompressed
+    metablock passed, and lane None where the stream ends in the walk,
+    else (bit0, mlen, wbits, npostfix, ndirect, out_prefix_len,
+    is_final, lit_len, cmd_len, dist_len) with wbits 0 on a resume and
+    the code lengths int32 views of one new array."""
+    fn = _lane_walk_fn()
+    if fn is None:
         return None
-    segs = [(int(pre[2 * i]), int(pre[2 * i + 1]))
-            for i in range(int(meta[6]))]
-    return meta, segs, lit, cmd, dl[:int(meta[5])]
+    b = _walk_bufs
+    r = fn(data, len(data), bit_pos, out_len, b.ptrs[0], b.ptrs[1],
+           LANE_WALK_MAX_PRE, b.ptrs[2])
+    if r == 0:
+        return None
+    meta = b.meta.tolist()
+    flat = b.pre[:2 * meta[6]].tolist()
+    pre = list(zip(flat[0::2], flat[1::2]))
+    if r == 2:
+        return pre, None
+    lens = b.lens[:960 + meta[5]].copy()
+    return pre, (meta[0], meta[1], meta[2], meta[3], meta[4], meta[7],
+                 bool(meta[8]), lens[:256], lens[256:960], lens[960:])
 
 
 # greedy walk tuning (the reference's values, as brotli_tpu passes

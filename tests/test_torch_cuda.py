@@ -594,6 +594,47 @@ def test_decompress_batch_gpu_card_matches_cpu():
     assert got[1] == 8
 
 
+def test_decompress_batch_gpu_google_streams_walk_natively(monkeypatch):
+    """A serving-shaped batch: google's q1 and q3 (libbrotlienc, lgwin
+    22) of seeded 64 KiB slices of in-repo source text.  Every walk is
+    native, the first and the resume of each stream that pauses at a
+    non-final compressed metablock (every q1 stream); outputs and
+    n_device equal the route with every walk in Python, and the
+    plaintext."""
+    import glob
+    import os
+
+    from brotli_tpu_torch import native_bridge as nb
+
+    from . import oracle
+    dev = _card()
+    if not oracle.available():
+        pytest.skip("libbrotlienc is needed for google's streams")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    text = b"".join(open(f, "rb").read() for f in
+                    sorted(glob.glob(os.path.join(root, "native", "*.cpp"))))
+    rng = np.random.default_rng(60)
+    plain = []
+    for _ in range(32):
+        off = int(rng.integers(0, len(text) - (1 << 16)))
+        plain.append(text[off:off + (1 << 16)])
+    streams = [oracle.compress(p, quality=1 if i % 2 == 0 else 3, lgwin=22)
+               for i, p in enumerate(plain)]
+    pending = [B._try_parse_stream(s)[1] for s in streams]
+    assert all(pending[0::2])
+    stats = {}
+    got = decompress_batch_gpu(streams, device=dev, stats=stats)
+    assert got == (plain, len(streams))
+    assert stats["walks_python"] == stats["walks_resumed"] == 0
+    assert stats["walks_native"] == len(streams) + sum(pending)
+    monkeypatch.setattr(nb, "lane_walk", lambda *a: None)
+    py_stats = {}
+    assert decompress_batch_gpu(streams, device=dev, stats=py_stats) == got
+    assert py_stats["walks_native"] == 0
+    assert py_stats["walks_python"] == len(streams)
+    assert py_stats["walks_resumed"] == sum(pending)
+
+
 def _rows(rng, rows, narrow=False):
     x = rng.integers(-(1 << 31), 1 << 31, size=(rows, 128), dtype=np.int64)
     return (x % 5 if narrow else x).astype(np.int32)

@@ -314,23 +314,45 @@ PLAIN = [TEXT[:700], TEXT[1000:1700], TEXT[3000:4600], TEXT[5000:8000], b""]
 
 
 @pytest.fixture(scope="module")
-def batch():
-    """google's q1 (a compressed metablock, then an empty last one: the
-    Python walk and one resume), google's q3 (the native walk), a
-    stream of four 400-byte metablocks (the Python walk, three resumes,
-    four rounds), a q11 stream (the host decoder) and a walk-only
-    stream.  Decoded untraced and traced."""
+def batch_streams():
+    """google's q1 (a compressed metablock, then an empty last one: a
+    walk and one resume), google's q3 (one walk), a stream of four
+    400-byte metablocks (a walk, three resumes, four rounds), a q11
+    stream (the host decoder) and a walk-only stream."""
     if not oracle.available():
         pytest.skip("libbrotlienc is needed for google's streams")
-    streams = [oracle.compress(PLAIN[0], quality=1),
-               oracle.compress(PLAIN[1], quality=3),
-               _fast_stream(PLAIN[2], 400),
-               compress(PLAIN[3], quality=11),
-               b"\x3b"]
+    return [oracle.compress(PLAIN[0], quality=1),
+            oracle.compress(PLAIN[1], quality=3),
+            _fast_stream(PLAIN[2], 400),
+            compress(PLAIN[3], quality=11),
+            b"\x3b"]
+
+
+def _decode_twice(streams):
     plain = decompress_batch_gpu(streams, device="cpu")
     stats = {}
     traced = decompress_batch_gpu(streams, device="cpu", stats=stats)
     return streams, plain, traced, stats
+
+
+@pytest.fixture(scope="module")
+def batch(batch_streams):
+    """The streams decoded untraced and traced: the native walk takes
+    every walk, first or resumed, but the q11 stream's, which it
+    refuses (more than one block type) and the Python walk declines."""
+    return _decode_twice(batch_streams)
+
+
+@pytest.fixture(scope="module")
+def batch_no_runtime(batch_streams):
+    """The same with BROTLI_TPU_TORCH_NO_NATIVE set: every walk in
+    Python."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv(nb.NO_NATIVE_ENV, "1")
+    try:
+        return _decode_twice(batch_streams)
+    finally:
+        mp.undo()
 
 
 def test_decode_untraced_outputs_unchanged(batch):
@@ -339,19 +361,33 @@ def test_decode_untraced_outputs_unchanged(batch):
     assert traced == plain
 
 
+def _count(batch, key):
+    _, _, (_, n_device), stats = batch
+    if key == "n_device":
+        return n_device
+    return stats[key] if key in stats else _names(stats).count(key)
+
+
 @pytest.mark.parametrize("key,want", [
-    ("walks_native", 1), ("walks_python", 4), ("walks_resumed", 4),
+    ("walks_native", 8), ("walks_python", 1), ("walks_resumed", 0),
     ("round.kernel", 4), ("reconstruct", 6), ("fallback", 1),
     ("n_device", 3)])
 def test_decode_counts_exact(batch, key, want):
-    """Counters, spans counted by name, and the returned n_device."""
-    _, _, (_, n_device), stats = batch
-    if key == "n_device":
-        assert n_device == want
-    elif key in stats:
-        assert stats[key] == want
-    else:
-        assert _names(stats).count(key) == want
+    """Counters, spans counted by name, and the returned n_device: the
+    native walk takes the five first walks but the q11 stream's and
+    the four resumes (q1's and the 400-byte stream's three)."""
+    assert _count(batch, key) == want
+
+
+@pytest.mark.parametrize("key,want", [
+    ("walks_native", 0), ("walks_python", 5), ("walks_resumed", 4),
+    ("walk.native", 0), ("round.kernel", 4), ("reconstruct", 6),
+    ("fallback", 1), ("n_device", 3)])
+def test_decode_counts_exact_no_runtime(batch_no_runtime, key, want):
+    """Without the runtime every first walk and every resume runs in
+    Python, and the outputs are the same."""
+    assert batch_no_runtime[2] == (PLAIN, 3)
+    assert _count(batch_no_runtime, key) == want
 
 
 def test_decode_spans_nest(batch):
@@ -361,8 +397,10 @@ def test_decode_spans_nest(batch):
     names = _names(stats)
     assert names[0] == "decompress_batch_gpu" and set(names) <= DECODE_SPANS
     assert all(s[1] == 0 for s in spans[1:])   # every span under the root
-    # the native walk is tried on every first walk; it took one
-    assert names.count("walk.native") == len(batch[0])
+    # with the runtime the native walk is tried on every walk, first or
+    # resumed; the Python walks are those it refused
+    walks = sum(stats[k] for k in B.DECODE_COUNTERS)
+    assert names.count("walk.native") == walks
     assert names.count("walk.python") == stats["walks_python"]
     assert names.count("walk.resume") == stats["walks_resumed"]
     for part in ("round.lanes", "round.copy_back"):
@@ -381,15 +419,15 @@ def test_decode_rounds_in_order(batch):
 
 @pytest.mark.parametrize("n_meta", [2, 3, 5])
 def test_decode_multi_metablock_rounds(n_meta):
-    """A stream of n 256-byte metablocks: one Python walk, n - 1
-    resumes, n rounds of one lane."""
+    """A stream of n 256-byte metablocks: n native walks (the first
+    and n - 1 resumes), n rounds of one lane."""
     plain = TEXT[2000:2000 + 256 * n_meta]
     s = _fast_stream(plain, 256)
     stats = {}
     assert decompress_batch_gpu([s], device="cpu", stats=stats) == (
         [plain], 1)
     assert (stats["walks_native"], stats["walks_python"],
-            stats["walks_resumed"]) == (0, 1, n_meta - 1)
+            stats["walks_resumed"]) == (n_meta, 0, 0)
     names = _names(stats)
     assert names.count("round.kernel") == names.count("reconstruct") == n_meta
     _assert_nested(stats["spans"])
@@ -427,4 +465,4 @@ def test_decode_stats_keys():
         [b""], 0)
     assert set(stats) == {"wall_s", "spans", *B.DECODE_COUNTERS}
     assert _names(stats) == ["decompress_batch_gpu", "walk.native",
-                             "walk.python", "assemble"]
+                             "assemble"]
