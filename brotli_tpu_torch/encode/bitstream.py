@@ -390,26 +390,20 @@ def store_meta_block_auto(writer: BitWriter, full, start: int, mlen: int,
     store_meta_block) plan and write it instead, as the JAX package
     does; where the runtime is not in use, they plan and write every
     block."""
-    from .metablock import choose_context_mode, choose_literal_context_map
+    from .metablock import choose_literal_context
     if not nb.available():
         _store_planned(writer, full, start, mlen, cmds, dist_params,
                        quality, size_hint, mode, is_last, enable_splits,
                        disable_literal_context_modeling)
         return
-    region = full[start:start + mlen]
-    ctx_mode = choose_context_mode(region, quality, mode)
     if disable_literal_context_modeling:
         # one literal tree per block type: zero context LUTs collapse
         # every context to 0
-        ctx_mode = 0
-        nlc, smap = 1, np.zeros(64, dtype=np.int64)
+        ctx_mode, nlc, smap = 0, 1, np.zeros(64, dtype=np.int64)
         lut0 = lut1 = np.zeros(256, dtype=np.uint8)
-    elif ctx_mode == C.CONTEXT_UTF8:
-        nlc, smap = choose_literal_context_map(full, start, mlen, quality,
-                                               size_hint)
-        lut0, lut1 = C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode]
     else:
-        nlc, smap = 1, np.zeros(64, dtype=np.int64)
+        ctx_mode, nlc, smap = choose_literal_context(
+            full, start, mlen, quality, mode, size_hint)
         lut0, lut1 = C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode]
     res = nb.store_metablock(
         full, start, mlen, is_last, cmds, dist_params.npostfix,
@@ -459,13 +453,37 @@ def store_meta_block_or_raw(writer: BitWriter, full, start: int, mlen: int,
     else:
         store_meta_block_trivial(writer, full, start, mlen, is_last, cmds,
                                  dist_params)
-    if writer.bit_length() - before <= 8 * mlen + 40:
+    if not _expands(writer.bit_length() - before, mlen):
         return True
     writer.restore_state(state)
-    store_uncompressed_meta_block(writer, full[start:start + mlen].tobytes())
+    store_raw(writer, full[start:start + mlen], is_last)
+    return False
+
+
+def _expands(nbits: int, mlen: int) -> bool:
+    """The expansion rule (reference encode.rs:2141-2163): a compressed
+    metablock of more than 8 * mlen + 40 bits is stored uncompressed."""
+    return nbits > 8 * mlen + 40
+
+
+def append_native(writer: BitWriter, res, mlen: int):
+    """The native store's metablock res = (words, nbits, cache)
+    appended where the store took it (not None) and it does not expand.
+    Returns the distance cache after it, or None: the caller then stores
+    the block uncompressed (store_raw), which leaves the decoder's cache
+    as it was."""
+    if res is None or _expands(res[1], mlen):
+        return None
+    writer.append_packed(res[0], res[1])
+    return res[2]
+
+
+def store_raw(writer: BitWriter, data: np.ndarray, is_last: bool):
+    """data as an uncompressed metablock, the empty last metablock
+    after it if is_last."""
+    store_uncompressed_meta_block(writer, data.tobytes())
     if is_last:
         write_empty_last_meta_block(writer)
-    return False
 
 
 def _build_switch_items(plan, switch_headers):

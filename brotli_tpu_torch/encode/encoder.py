@@ -47,8 +47,7 @@ from ..utils.ir import ir_from_commands
 from . import bitstream as bs
 from .command import resolve_commands
 from .match import find_best_matches, greedy_parse
-from .metablock import (choose_context_mode, choose_distance_params,
-                        choose_literal_context_map)
+from .metablock import choose_distance_params, choose_literal_context
 from .params import EncoderParams
 from .zopfli import zopfli_collect, zopfli_segment
 
@@ -469,21 +468,15 @@ def _store_fused(w, data, full, dlen, start, segments, boundaries, params,
         mlen = boundary - seg_start
         is_last = i == len(boundaries) - 1 and not suppress
         abs_start = dlen + seg_start
-        region = full[abs_start:abs_start + mlen]
-        ctx_mode = choose_context_mode(region, params.quality, params.mode)
         if params.disable_literal_context_modeling:
             # one literal tree per block type: zero context LUTs collapse
             # every context to 0 (reference param 4)
-            nlc, smap = 1, np.zeros(64, dtype=np.int64)
+            ctx_mode, nlc, smap = 0, 1, np.zeros(64, dtype=np.int64)
             lut0 = lut1 = np.zeros(256, dtype=np.uint8)
-            ctx_mode = 0
         else:
-            if ctx_mode == C.CONTEXT_UTF8:
-                nlc, smap = choose_literal_context_map(
-                    full, abs_start, mlen, params.quality,
-                    params.size_hint)
-            else:
-                nlc, smap = 1, np.zeros(64, dtype=np.int64)
+            ctx_mode, nlc, smap = choose_literal_context(
+                full, abs_start, mlen, params.quality, params.mode,
+                params.size_hint)
             lut0 = C.CONTEXT_LUT0[ctx_mode]
             lut1 = C.CONTEXT_LUT1[ctx_mode]
         res = nb.encode_metablock(
@@ -491,16 +484,11 @@ def _store_fused(w, data, full, dlen, start, segments, boundaries, params,
             params.window_size, params.dist.npostfix, params.dist.ndirect,
             params.dist.alphabet_size, params.quality, ctx_mode, nlc, smap,
             lut0, lut1, enable_splits=params.quality >= 4)
-        # Per-metablock expansion fallback (encode.rs:2141-2163); the
-        # decoder's distance cache is unchanged by an uncompressed block.
-        if res is None or res[1] > 8 * mlen + 40:
-            bs.store_uncompressed_meta_block(
-                w, data[seg_start:boundary].tobytes())
-            if is_last:
-                bs.write_empty_last_meta_block(w)
+        new_cache = bs.append_native(w, res, mlen)
+        if new_cache is None:
+            bs.store_raw(w, data[seg_start:boundary], is_last)
         else:
-            words, nbits, cache = res
-            w.append_packed(words, nbits)
+            cache = new_cache
         seg_start = boundary
 
 

@@ -28,7 +28,7 @@ from ..device import resolve_device
 from ..ops.matching import MIN_SCORE_DELTA, best_matches_block
 from . import bitstream as bs
 from .command import resolve_commands
-from .match import greedy_parse
+from .match import greedy_parse, score_matches
 from .params import EncoderParams
 
 SUB_BLOCK = 4096
@@ -85,7 +85,6 @@ def compress_fast(data, lgwin: int = 22, quality: int = 1,
         m_main = (m // SUB_BLOCK) * SUB_BLOCK
         bl = np.zeros(m, np.int64)
         bd = np.zeros(m, np.int64)
-        bsc = np.zeros(m, np.int64)
         # a shard shorter than one sub-block finds no matches (the
         # reference's behaviour): it parses as literals
         if m_main >= SUB_BLOCK:
@@ -94,13 +93,10 @@ def compress_fast(data, lgwin: int = 22, quality: int = 1,
                 x, params.window_size)
             count = int(count)
             cpos = cpos[:count].cpu().numpy().astype(np.int64)
-            lens = clen[:count].cpu().numpy().astype(np.int64)
-            dists = cdist[:count].cpu().numpy().astype(np.int64)
-            bl[cpos] = lens
-            bd[cpos] = dists
-            # scores recomputed on the host (cheaper than shipping them)
-            bsc[cpos] = (135 * lens - 30 * np.floor(
-                np.log2(np.maximum(dists, 2))).astype(np.int64))
+            bl[cpos] = clen[:count].cpu().numpy()
+            bd[cpos] = cdist[:count].cpu().numpy()
+        # scores recomputed on the host (cheaper than shipping them)
+        bsc = score_matches(bl, bd)
         segs = greedy_parse(shard, bl, bd, bsc, [m], dict_len=0, pos0=0,
                             initial_cache=tuple(cache),
                             best_isdict=np.zeros(m, bool),
@@ -109,16 +105,8 @@ def compress_fast(data, lgwin: int = 22, quality: int = 1,
         cmds, new_cache = resolve_commands(
             ins, cps, dst, params.dist, advance=adv, initial_cache=cache,
             window_size=params.window_size)
-        is_last = s1 == n
-        state = w.save_state()
-        before = w.bit_length()
-        bs.store_meta_block_trivial(w, shard, 0, m, is_last, cmds,
-                                    params.dist)
-        if w.bit_length() - before > 8 * m + 40:
-            w.restore_state(state)
-            bs.store_uncompressed_meta_block(w, shard.tobytes())
-            if is_last:
-                bs.write_empty_last_meta_block(w)
-        else:
+        # quality 0: the trivial store, as brotli_tpu's at any quality
+        if bs.store_meta_block_or_raw(w, shard, 0, m, cmds, params.dist, 0,
+                                      m, params.mode, s1 == n):
             cache = new_cache
     return w.getvalue()

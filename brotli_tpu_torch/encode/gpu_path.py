@@ -60,8 +60,8 @@ from ..ops.split import split_symbols_device
 from ..utils import trace
 from . import bitstream as bs
 from .command import resolve_commands
-from .match import greedy_parse
-from .metablock import choose_context_mode, choose_literal_context_map
+from .match import greedy_parse, score_matches
+from .metablock import choose_literal_context
 from .params import EncoderParams
 
 LEN_SHIFT = 26  # dist < 2^26 covers lgwin <= 24 (dist < 2^24 + slack)
@@ -197,27 +197,10 @@ def _host_parse(sorted_out, dict_out, row, halo, real, dlen, region,
         bl = packed >> LEN_SHIFT
         bd = packed & ((1 << LEN_SHIFT) - 1)
     with trace.span("host_parse.extend"):
-        # exact extension of length-capped matches (every reported
-        # length is byte-attested by the kernel's chunk-value payloads,
-        # so extension resumes at the cap)
-        capped = bl >= 4 * knobs["rounds"]
-        if knobs["variant"] == "exact9":
-            # the short fold caps its lengths at 8: a winning 8-capped
-            # short match may be longer, so len == 8 is a candidate too
-            # (extending a genuine 8 is a no-op byte compare)
-            capped |= bl == 8
-        # without the runtime, capped lengths stay capped (as in the
-        # JAX package)
-        if capped.any() and nb.available():
-            pos_c = np.nonzero(capped)[0]
-            bl[pos_c] = nb.extend_caps(row[:halo + real], 0, pos_c + halo,
-                                       bd[pos_c], bl[pos_c])
-        with np.errstate(divide="ignore"):
-            bsc = np.where(
-                bl > 0,
-                135 * bl - 30 * np.floor(
-                    np.log2(np.maximum(bd, 2))).astype(np.int64),
-                0)
+        # every reported length is byte-attested by the kernel's
+        # chunk-value payloads, so extension resumes at the cap
+        bsc = score_matches(bl, bd, row[:halo + real], halo,
+                            knobs["rounds"], knobs["variant"] == "exact9")
     with trace.span("host_parse.dict_probe"):
         # the dictionary candidates that beat the window's match
         isdict, wire, won = merge_candidates(dict_out, bl, bd, bsc)
@@ -285,18 +268,65 @@ class _Pipeline:
             return [o.numpy() for o in outs]
 
 
-def _store_py(w, region, dlen, real, seg, params, n, is_last, cache):
-    """One span through the pure-Python serializer (no runtime): the
-    commands resolved, then store_meta_block_or_raw at quality >= 4.
-    Returns the distance cache after the span."""
+def _halo_rows(raw: np.ndarray, span: int, halo: int):
+    """The input as fixed-shape rows, one a span: (rows [ceil(n / span),
+    halo + span] uint8, min_pos [rows]).  Row j holds span j at [halo:]
+    (zero fill past the input's end) and the up to halo bytes before it
+    right before; min_pos[j] is where those start (zero fill below)."""
+    n = len(raw)
+    rows = np.zeros((-(-n // span), halo + span), dtype=np.uint8)
+    min_pos = np.zeros(len(rows), np.int32)
+    for j, s0 in enumerate(range(0, n, span)):
+        fill = min(s0, halo)
+        rows[j, halo - fill:halo + min(span, n - s0)] = \
+            raw[s0 - fill:s0 + span]
+        min_pos[j] = halo - fill
+    return rows, min_pos
+
+
+def _store_span(w, region, dlen, real, seg, params, n, is_last, cache, dev):
+    """One span's commands (ins, cps, dst, adv) as a metablock of
+    region[dlen:dlen + real]: the literal context, the literal block
+    split on the device, the native store, the block stored uncompressed
+    where the store refused or grew it.  Without the runtime, the JAX
+    package's route: the commands resolved, then store_meta_block_or_raw
+    at quality >= 4.  Returns the distance cache after the span."""
     ins, cps, dst, adv = seg
-    cmds, new_cache = resolve_commands(
-        ins, cps, dst, params.dist, advance=adv, initial_cache=cache,
-        pos_offset=dlen, window_size=params.window_size)
-    if bs.store_meta_block_or_raw(w, region, dlen, real, cmds, params.dist,
-                                  max(params.quality, 4), n, params.mode,
-                                  is_last):
+    if not nb.available():
+        with trace.span("store.metablock"):
+            cmds, new_cache = resolve_commands(
+                ins, cps, dst, params.dist, advance=adv, initial_cache=cache,
+                pos_offset=dlen, window_size=params.window_size)
+            if bs.store_meta_block_or_raw(
+                    w, region, dlen, real, cmds, params.dist,
+                    max(params.quality, 4), n, params.mode, is_last):
+                return new_cache
+            return cache
+    with trace.span("store.context"):
+        ctx_mode, nlc, smap = choose_literal_context(
+            region, dlen, real, params.quality, params.mode, n)
+    # literal block split planned on the device; a failure raises
+    ext_split = None
+    with trace.span("store.literals"):
+        lit_stream = bs.extract_literals(region, dlen, ins, adv)
+    if len(lit_stream) >= 128:
+        with trace.span("store.split"):
+            sp = split_symbols_device(lit_stream.astype(np.int64), 256,
+                                      "literal", dev)
+        if sp.num_types > 1:
+            ext_split = (sp.types.astype(np.int32), sp.num_types)
+    with trace.span("store.metablock"):
+        res = nb.encode_metablock(
+            region, dlen, real, is_last, ins, cps, dst, adv, cache,
+            params.window_size, 0, 0, params.dist.alphabet_size,
+            max(params.quality, 4), ctx_mode, nlc, smap,
+            C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode],
+            ext_lit_split=ext_split)
+        new_cache = bs.append_native(w, res, real)
+    if new_cache is not None:
         return new_cache
+    with trace.span("store.raw"):
+        bs.store_raw(w, region[dlen:dlen + real], is_last)
     return cache
 
 
@@ -372,117 +402,68 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
         # pseudo-distances computed row-locally are exact
         halo = -(-(params.window_size + 16) // 4096) * 4096
         knobs = _device_knobs(params.quality)
-
-        # fixed-shape rows: every dispatch has one shape
         with trace.span("entry.rows"):
-            starts = list(range(0, n, span))
-            rows = np.zeros((len(starts), halo + span), dtype=np.uint8)
-            min_pos = np.zeros(len(starts), np.int32)
-            for j, s0 in enumerate(starts):
-                real = min(span, n - s0)
-                rows[j, halo:halo + real] = raw[s0:s0 + real]
-                ctx_lo = max(0, s0 - halo)
-                fill = s0 - ctx_lo
-                if fill:
-                    rows[j, halo - fill:halo] = raw[ctx_lo:s0]
-                min_pos[j] = halo - fill
+            rows, min_pos = _halo_rows(raw, span, halo)
+        reals = [min(span, n - s0) for s0 in range(0, n, span)]
 
+        # the route: what the device runs on a row, and what the host
+        # makes of its results -- one span's (ins, cps, dst, adv)
         with trace.span("entry.call_setup"):
             if max_device:
-                def run(j, row_d):
+                def device_step(j, row_d):
                     return _match_parse_dense(row_d, int(min_pos[j]),
                                               params.window_size, halo,
                                               k=knobs["k"],
                                               rounds=max(knobs["rounds"], 6),
-                                              real=min(span, n - starts[j]))
+                                              real=reals[j])
+
+                def host_step(j, outs, dlen, region, cache):
+                    # (visited, take, dist) of the span
+                    with trace.span("host_parse.commands"):
+                        seg = _commands_from_parse(*outs, reals[j])
+                    if trace.on():
+                        trace.count("parse.positions", reals[j])
+                        trace.count("parse.copied", int(seg[1].sum()))
+                    return seg
             else:
-                # the host inversion is the runtime's: without it, invert on
-                # the device
+                # the host inversion is the runtime's: without it, invert
+                # on the device
                 device_invert = (_pick_device_invert(dev) if nb.available()
                                  else True)
 
-                def run(j, row_d):
+                def device_step(j, row_d):
                     out = _match_dense(row_d, int(min_pos[j]),
                                        params.window_size, halo,
                                        device_invert=device_invert, **knobs)
-                    real = min(span, n - starts[j])
-                    return (*out, dict_probe(row_d, halo, real,
+                    return (*out, dict_probe(row_d, halo, reals[j],
                                              int(min_pos[j]),
                                              params.window_size))
 
-            pipe = _Pipeline(rows, dev, run)
-        for j in range(min(_MAX_INFLIGHT, len(starts))):
+                def host_step(j, outs, dlen, region, cache):
+                    # content-sorted space (pos_s, packed_s[, score_s] per
+                    # fold) unless inverted on the device, then the
+                    # dictionary candidates
+                    return _host_parse(outs[:-1], outs[-1], rows[j], halo,
+                                       reals[j], dlen, region, knobs,
+                                       params.window_size, cache)[0]
+
+            pipe = _Pipeline(rows, dev, device_step)
+        for j in range(min(_MAX_INFLIGHT, len(rows))):
             pipe.dispatch(j)
 
         cache = list(C.INITIAL_DISTANCE_CACHE)
-        for j, s0 in enumerate(starts):
-            # device results arrive in content-sorted space (pos_s,
-            # packed_s[, score_s] per fold) unless inverted on the device,
-            # then the dictionary candidates; max_device: (visited, take,
-            # dist) of the span
+        for j, real in enumerate(reals):
             outs = pipe.wait(j)
-            if j + _MAX_INFLIGHT < len(starts):
+            if j + _MAX_INFLIGHT < len(rows):
                 pipe.dispatch(j + _MAX_INFLIGHT)
-            real = min(span, n - s0)
-            row = rows[j]
             # drop the zero-filled part of the halo: with dlen = halo -
             # min_pos (== min(s0, halo)) every row-local position maps to
             # its absolute stream position, so the walk's distance limits
             # and dictionary pseudo-distances are exact for every span
-            mp0 = int(min_pos[j])
-            dlen = halo - mp0
-            region = row[mp0:halo + real]
+            dlen = halo - int(min_pos[j])
+            region = rows[j][halo - dlen:halo + real]
             with trace.span("host_parse"):
-                if max_device:
-                    with trace.span("host_parse.commands"):
-                        segs = [_commands_from_parse(*outs, real)]
-                    if trace.on():
-                        trace.count("parse.positions", real)
-                        trace.count("parse.copied", int(segs[0][1].sum()))
-                else:
-                    segs = _host_parse(outs[:-1], outs[-1], row, halo, real,
-                                       dlen, region, knobs,
-                                       params.window_size, cache)
-            ins, cps, dst, adv = segs[0]
-            is_last = j == len(starts) - 1
-            if not nb.available():
-                with trace.span("store.metablock"):
-                    cache = _store_py(w, region, dlen, real, segs[0],
-                                      params, n, is_last, cache)
-                continue
-            with trace.span("store.context"):
-                ctx_mode = choose_context_mode(row[halo:halo + real],
-                                               params.quality, params.mode)
-                if ctx_mode == C.CONTEXT_UTF8:
-                    nlc, smap = choose_literal_context_map(
-                        region, dlen, real, params.quality, n)
-                else:
-                    nlc, smap = 1, np.zeros(64, dtype=np.int64)
-            # literal block split planned on the device; a failure raises
-            ext_split = None
-            with trace.span("store.literals"):
-                lit_stream = bs.extract_literals(region, dlen, ins, adv)
-            if len(lit_stream) >= 128:
-                with trace.span("store.split"):
-                    sp = split_symbols_device(lit_stream.astype(np.int64), 256,
-                                              "literal", dev)
-                if sp.num_types > 1:
-                    ext_split = (sp.types.astype(np.int32), sp.num_types)
-            with trace.span("store.metablock"):
-                res = nb.encode_metablock(
-                    region, dlen, real, is_last, ins, cps, dst, adv,
-                    cache, params.window_size, 0, 0,
-                    params.dist.alphabet_size, max(params.quality, 4),
-                    ctx_mode, nlc, smap, C.CONTEXT_LUT0[ctx_mode],
-                    C.CONTEXT_LUT1[ctx_mode], ext_lit_split=ext_split)
-                stored = res is not None and res[1] <= 8 * real + 40
-                if stored:
-                    words, nbits, cache = res
-                    w.append_packed(words, nbits)
-            if not stored:
-                with trace.span("store.raw"):
-                    bs.store_uncompressed_meta_block(
-                        w, raw[s0:s0 + real].tobytes())
-                    if is_last:
-                        bs.write_empty_last_meta_block(w)
+                seg = host_step(j, outs, dlen, region, cache)
+            cache = _store_span(w, region, dlen, real, seg, params, n,
+                                j == len(rows) - 1, cache, dev)
         return w.getvalue()

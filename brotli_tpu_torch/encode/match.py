@@ -208,6 +208,28 @@ def extend_match(data: np.ndarray, cand: int, pos: int, cur_len: int,
     return length
 
 
+def score_matches(best_len, best_dist, data=None, base: int = 0,
+                  rounds: int = 0, short_fold: bool = False):
+    """The walk's scores of a device matcher's best match at each
+    position, 135 * len - 30 * floor(log2(max(dist, 2))), 0 where there
+    is none.  With `data` (position p at data[base + p]) a length at the
+    fold's attested cap of 4 * rounds bytes is first extended exactly in
+    place (short_fold: also a length of 8, the short fold's cap; a
+    genuine one is a no-op compare), where the runtime is in use:
+    without it capped lengths stay capped, as in the JAX package."""
+    if data is not None and nb.available():
+        capped = best_len >= 4 * rounds
+        if short_fold:
+            capped |= best_len == 8
+        if capped.any():
+            pos = np.nonzero(capped)[0]
+            best_len[pos] = nb.extend_caps(data, 0, pos + base,
+                                           best_dist[pos], best_len[pos])
+    return np.where(best_len > 0, LITERAL_BYTE_SCORE // 4 * best_len
+                    - DISTANCE_BIT_PENALTY * np.floor(np.log2(np.maximum(
+                        best_dist, 2))).astype(np.int64), 0)
+
+
 def _cache_penalty(i: int) -> int:
     """Reference BackwardReferencePenaltyUsingLastDistance
     (backward_references/mod.rs:1151)."""

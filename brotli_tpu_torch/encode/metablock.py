@@ -145,6 +145,18 @@ def choose_literal_context_map(data: np.ndarray, start: int, length: int,
     return 3, STATIC_CONTEXT_MAP_CONTINUATION
 
 
+def choose_literal_context(data: np.ndarray, start: int, length: int,
+                           quality: int, mode: int, size_hint: int):
+    """The literal context of the metablock data[start:start + length]:
+    (context mode, num_contexts, context_map[64]), the static map chosen
+    where the mode is UTF8."""
+    ctx_mode = choose_context_mode(data[start:start + length], quality, mode)
+    if ctx_mode == C.CONTEXT_UTF8:
+        return (ctx_mode, *choose_literal_context_map(data, start, length,
+                                                      quality, size_hint))
+    return ctx_mode, 1, np.zeros(64, dtype=np.int64)
+
+
 def _should_use_complex_map(data: np.ndarray, start: int, length: int):
     """Reference ShouldUseComplexStaticContextMap."""
     lut0 = C.CONTEXT_LUT0[C.CONTEXT_UTF8]

@@ -43,8 +43,9 @@ from ..device import resolve_device
 from ..encode import bitstream as bstr
 from ..encode.command import resolve_commands
 from ..encode.encoder import POISONED_DISTANCE, compress
-from ..encode.match import greedy_parse
-from ..encode.metablock import choose_context_mode, choose_literal_context_map
+from ..encode.gpu_path import _halo_rows
+from ..encode.match import greedy_parse, score_matches
+from ..encode.metablock import choose_literal_context
 from ..encode.params import EncoderParams
 from ..encode.static_dict import add_dictionary_matches
 from ..ops.fold_cuda import (best_matches_exact8_p, best_matches_exact9_p,
@@ -251,18 +252,8 @@ def compress_mesh(data, mesh: list | None = None, n_shards: int = None,
     # the halo covers the whole window: every cross-shard match the
     # reference's CompressMulti can encode is visible to the matcher
     halo = -(-min(params.window_size, n) // SUB_BLOCK) * SUB_BLOCK
-    n_real = -(-n // shard_len)   # shards with bytes of their own
-    rows = np.zeros((n_real, halo + shard_len), dtype=np.uint8)
-    min_pos = np.zeros(n_real, dtype=np.int64)
-    for i in range(n_real):
-        lo = i * shard_len
-        hi = min(n, lo + shard_len)
-        rows[i, halo:halo + hi - lo] = raw[lo:hi]
-        ctx_lo = max(0, lo - halo)
-        fill = lo - ctx_lo
-        if fill:
-            rows[i, halo - fill:halo] = raw[ctx_lo:lo]
-        min_pos[i] = halo - fill
+    rows, min_pos = _halo_rows(raw, shard_len, halo)
+    n_real = len(rows)   # shards with bytes of their own
 
     knobs = dict(k=32, k8=0, rounds=4, variant="exact") \
         if params.quality <= 6 \
@@ -292,33 +283,17 @@ def compress_mesh(data, mesh: list | None = None, n_shards: int = None,
         device_wait += time.perf_counter() - t0
         cpos, clen, cdist, count = [t.numpy() for t in outs]
         pending[i] = None
-        lo = i * shard_len
-        real = min(shard_len, n - lo)
+        real = min(shard_len, n - i * shard_len)
         row = rows[i]
         cnt = int(count)
         pos = cpos[:cnt].astype(np.int64) - halo   # shard-relative
-        lens = clen[:cnt].astype(np.int64)
-        dists = cdist[:cnt].astype(np.int64)
         keep = (pos >= 0) & (pos < real)
-        pos, lens, dists = pos[keep], lens[keep], dists[keep]
-        # exact extension of cap-hit matches (the runtime's)
-        if len(pos) and nb.available():
-            capped = lens >= 4 * knobs["rounds"]
-            if knobs["variant"] == "exact9":
-                # the short fold caps its lengths at 8: a len == 8 winner
-                # may be longer
-                capped |= lens == 8
-            if capped.any():
-                lens[capped] = nb.extend_caps(row[:halo + real], 0,
-                                              pos[capped] + halo,
-                                              dists[capped], lens[capped])
         bl = np.zeros(real, np.int64)
         bd = np.zeros(real, np.int64)
-        bsc = np.zeros(real, np.int64)
-        bl[pos] = lens
-        bd[pos] = dists
-        bsc[pos] = (135 * bl[pos] - 30 * np.floor(
-            np.log2(np.maximum(bd[pos], 2))).astype(np.int64))
+        bl[pos[keep]] = clen[:cnt][keep]
+        bd[pos[keep]] = cdist[:cnt][keep]
+        bsc = score_matches(bl, bd, row[:halo + real], halo,
+                            knobs["rounds"], knobs["variant"] == "exact9")
         isd = np.zeros(real, bool)
         bwire = bl.copy()
         if i == 0:
@@ -346,8 +321,8 @@ def compress_mesh(data, mesh: list | None = None, n_shards: int = None,
             dlen = halo if i > 0 else 0
             region = row[:halo + real] if i > 0 \
                 else row[halo:halo + real]
-            _serialize_shard(w, region, row, halo, dlen, start, real,
-                             bl, bd, bsc, isd, bwire, params, cache)
+            _serialize_shard(w, region, dlen, start, real, bl, bd, bsc,
+                             isd, bwire, params, cache)
         bstr.write_empty_last_meta_block(w)
         pieces.append(w.getvalue())
     out = _merge(pieces)
@@ -358,17 +333,16 @@ def compress_mesh(data, mesh: list | None = None, n_shards: int = None,
     return out
 
 
-def _serialize_shard(w, region, row, halo, dlen, start, real, bl, bd,
-                     bsc, isd, bwire, params, cache):
+def _serialize_shard(w, region, dlen, start, real, bl, bd, bsc, isd,
+                     bwire, params, cache):
     """One shard's parse as lgblock-sized metablocks through the native
     store (a metablock is capped at 2^24 bytes by the format).  The
     distance cache rolls across metablocks; a metablock that would
     expand is stored uncompressed.  Where the fused native store refuses
     a block for its buffer, or the runtime is not in use, the commands
     are resolved here and stored as the JAX package stores them
-    (brotli_tpu/parallel/mesh.py:377-400): store_meta_block_auto at
-    quality >= 4, the trivial store below, kept at <= 8 * mlen + 40
-    bits, else stored uncompressed with the cache unchanged."""
+    (brotli_tpu/parallel/mesh.py:377-400): store_meta_block_or_raw at
+    the quality tier."""
     span = 1 << params.lgblock
     bounds = list(range(start + span, real, span)) + [real]
     segs = greedy_parse(region, bl, bd, bsc, bounds, dict_len=dlen,
@@ -383,25 +357,19 @@ def _serialize_shard(w, region, row, halo, dlen, start, real, bl, bd,
             continue
         res = None
         if nb.available():
-            ctx_mode = choose_context_mode(
-                row[halo + mb_start:halo + mb_end], params.quality,
-                params.mode)
-            if ctx_mode == C.CONTEXT_UTF8:
-                nlc, smap = choose_literal_context_map(
-                    region, dlen + mb_start, mlen, params.quality, real)
-            else:
-                nlc, smap = 1, np.zeros(64, dtype=np.int64)
+            ctx_mode, nlc, smap = choose_literal_context(
+                region, dlen + mb_start, mlen, params.quality, params.mode,
+                real)
             res = nb.encode_metablock(
                 region, dlen + mb_start, mlen, False, ins, cps, dst, adv,
                 cache, params.window_size, 0, 0, params.dist.alphabet_size,
                 max(params.quality, 4), ctx_mode, nlc, smap,
                 C.CONTEXT_LUT0[ctx_mode], C.CONTEXT_LUT1[ctx_mode])
-        if res is not None and res[1] <= 8 * mlen + 40:
-            w.append_packed(res[0], res[1])
-            cache[:] = res[2]
+        new_cache = bstr.append_native(w, res, mlen)
+        if new_cache is not None:
+            cache[:] = new_cache
         elif res is not None:
-            bstr.store_uncompressed_meta_block(
-                w, row[halo + mb_start:halo + mb_end].tobytes())
+            bstr.store_raw(w, region[dlen + mb_start:dlen + mb_end], False)
         else:
             cmds, new_cache = resolve_commands(
                 ins, cps, dst, params.dist, advance=adv,

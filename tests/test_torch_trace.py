@@ -9,6 +9,7 @@ On the CPU, small inputs (the decoder's plain step loop takes about a
 millisecond a step).
 """
 
+import importlib
 import threading
 import time
 
@@ -466,3 +467,69 @@ def test_decode_stats_keys():
     assert set(stats) == {"wall_s", "spans", *B.DECODE_COUNTERS}
     assert _names(stats) == ["decompress_batch_gpu", "walk.native",
                              "assemble"]
+
+
+# -- the benchmark's wrap points ---------------------------------------
+
+# The module attributes a traced benchmark run replaces with span
+# wrappers (perfbench/spans.py's wrap points, perfbench/card_parse.py's
+# spies), with the entry each runs under.  The program must look each up
+# when it calls it, so that the replacement sees every call.
+WRAP_POINTS = [
+    ("brotli_tpu_torch.encode.gpu_path:_host_parse", "compress"),
+    ("brotli_tpu_torch.encode.gpu_path:_Pipeline.wait", "compress"),
+    ("brotli_tpu_torch.encode.gpu_path:split_symbols_device", "compress"),
+    ("brotli_tpu_torch.encode.gpu_path:best_matches_exact_p", "compress"),
+    ("brotli_tpu_torch.encode.gpu_path:_match_parse_dense", "max_device"),
+    ("brotli_tpu_torch.encode.gpu_path:_commands_from_parse", "max_device"),
+    ("brotli_tpu_torch.encode.gpu_path:compress_gpu", "compress"),
+    ("brotli_tpu_torch.native_bridge:encode_metablock", "compress"),
+    ("brotli_tpu_torch.ops.fold_cuda:fold_sorted", "compress"),
+    ("brotli_tpu_torch.decode.batch_gpu:_try_parse_stream", "decode"),
+    ("brotli_tpu_torch.decode.batch_gpu:_resume_parse_stream", "decode"),
+    ("brotli_tpu_torch.decode.batch_gpu:_run_device", "decode"),
+    ("brotli_tpu_torch.decode.batch_gpu:lane_arrays", "decode"),
+    ("brotli_tpu_torch.decode.batch_gpu:_reconstruct", "decode"),
+]
+
+
+@pytest.fixture(scope="module")
+def wrap_entries():
+    """Each entry's call, through its module's attribute, and the
+    unpatched outputs, filled as the cases ask for them.  The decoder
+    takes a stream of four 400-byte metablocks (a walk, three resumes,
+    four rounds) and a walk-only stream."""
+    streams = [_fast_stream(PLAIN[2], 400), b"\x3b"]
+    calls = {
+        "compress": lambda: G.compress_gpu(DATA, quality=5, span=SPAN,
+                                           device="cpu"),
+        "max_device": lambda: G.compress_gpu(DATA, quality=5, span=SPAN,
+                                             max_device=True, device="cpu"),
+        "decode": lambda: B.decompress_batch_gpu(streams, device="cpu"),
+    }
+    return calls, {}
+
+
+@pytest.mark.parametrize("point,entry", WRAP_POINTS,
+                         ids=[p for p, _ in WRAP_POINTS])
+def test_wrap_point_sees_every_call(point, entry, wrap_entries, monkeypatch):
+    """A counting pass-through put on the attribute is called, and the
+    entry's output is the unpatched one."""
+    calls, unpatched = wrap_entries
+    if entry not in unpatched:
+        unpatched[entry] = calls[entry]()
+    mod_name, _, path = point.partition(":")
+    owner = importlib.import_module(mod_name)
+    *outer, attr = path.split(".")
+    for name in outer:
+        owner = getattr(owner, name)
+    fn = getattr(owner, attr)
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(1)
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(owner, attr, spy)
+    assert calls[entry]() == unpatched[entry]
+    assert seen, point
