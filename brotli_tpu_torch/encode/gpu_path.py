@@ -369,7 +369,12 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                                    device's parse (its only child)
           store.context          the context mode and literal context map
           store.literals         the literal extraction
-          store.split            the literal block split on the device
+          store.split            the literal block split; where it
+                                 reaches the Lloyd loop, with
+            split.device           the copy in, the Lloyd loop on the
+                                   device and the two copies back
+            split.hysteresis       the run hysteresis (host)
+            split.merge            the header-cost merge (host)
           store.metablock        the native store and the bit append (no
                                  runtime: the Python planner and store)
           store.raw              a span stored uncompressed where the

@@ -219,37 +219,59 @@ def _entropy_cost(hist: np.ndarray) -> float:
 
 
 def _entropy_rows(M: np.ndarray) -> np.ndarray:
-    """Shannon bits per row of a histogram matrix (vectorized)."""
+    """Shannon bits per row of a histogram matrix (vectorized).  Where a
+    count is 0, M * log2(max(M, 1)) is 0.0 already, so the terms need
+    no mask; they are formed in one buffer."""
     s = M.sum(axis=-1)
-    t = np.where(M > 0, M * np.log2(np.maximum(M, 1)), 0.0).sum(axis=-1)
+    t = np.maximum(M, 1.0)
+    np.log2(t, out=t)
+    t *= M
+    t = t.sum(axis=-1)
     return np.where(s > 0, s * np.log2(np.maximum(s, 1)) - t, 0.0)
 
 
 def _merge_types(assign: np.ndarray, hist: np.ndarray, k: int,
                  switch_cost: float, header_cost: float):
     """Greedy pairwise cluster merge while it reduces total cost
-    (entropy + per-type header estimate); the all-pairs merged
-    entropies are one [m, m, alpha] broadcast per round."""
-    cent = np.zeros((k, hist.shape[1]))
-    np.add.at(cent, assign, hist)
+    (entropy + per-type header estimate): each round merges the pair
+    i < j of least delta, the first in row-major order among equals,
+    while that delta is negative.
+
+    The merged entropies of the pairs are computed once; a merge of b
+    into a then recomputes only a's pairs, and a's own entropy is the
+    merged pair's.  Every other pair's histograms are unchanged, and
+    each entropy is the same float64 reduction over the same 256
+    values, so every delta, and every decision, is what recomputing
+    all pairs each round gives.  The pair matrix holds +inf below its
+    diagonal, so its row-major argmin is the upper triangle's."""
     ids = np.unique(assign)
-    C_ = cent[ids]
-    while len(ids) > 1:
-        m = len(ids)
-        e = _entropy_rows(C_)
-        pair = _entropy_rows(C_[:, None, :] + C_[None, :, :])
+    m = len(ids)
+    if m <= 1:
+        return assign
+    # the types' histograms: sums of whole counts, which no order of
+    # addition changes
+    C_ = np.stack([hist[assign == t].sum(axis=0) for t in ids])
+    e = _entropy_rows(C_)
+    iu0, iu1 = np.triu_indices(m, 1)
+    pair = np.full((m, m), np.inf)
+    pair[iu0, iu1] = _entropy_rows(C_[iu0] + C_[iu1])
+    owner = np.arange(k, dtype=assign.dtype)   # each type's type now
+    while m > 1:
         delta = pair - e[:, None] - e[None, :] - header_cost
-        iu = np.triu_indices(m, 1)
-        flat = delta[iu]
-        j = int(np.argmin(flat))
-        if flat[j] >= 0.0:
+        j = int(np.argmin(delta))
+        if delta.flat[j] >= 0.0:
             break
-        a, b = int(iu[0][j]), int(iu[1][j])
+        a, b = divmod(j, m)                    # a < b: a keeps its index
+        e[a] = pair[a, b]
         C_[a] += C_[b]
-        assign = np.where(assign == ids[b], ids[a], assign)
-        C_ = np.delete(C_, b, axis=0)
-        ids = np.delete(ids, b)
-    return assign
+        owner[owner == ids[b]] = ids[a]
+        keep = np.arange(m) != b
+        C_, ids, e, pair = C_[keep], ids[keep], e[keep], pair[keep][:, keep]
+        m -= 1
+        row = _entropy_rows(C_[a] + C_)
+        pair[:a, a] = row[:a]
+        pair[a, a + 1:] = row[a + 1:]
+    return owner[assign]
 
 
 def split_symbols(syms: np.ndarray, alphabet_size: int, category: str,
@@ -309,8 +331,16 @@ def split_symbols(syms: np.ndarray, alphabet_size: int, category: str,
     assign = _merge_types(assign, hist, k, p["switch_cost"],
                           p["header_cost"])
 
-    # compress type ids to used ones, first-appearance order with the
-    # first block as type 0
+    return _chunk_split(assign, k, chunk, n)
+
+
+def _chunk_split(assign: np.ndarray, k: int, chunk: int, n: int
+                 ) -> BlockSplit:
+    """The BlockSplit of n symbols whose chunk c has type assign[c]:
+    the used types renumbered in order of first appearance (the first
+    block is type 0), trivial where one is used.  Neighbouring runs of
+    chunks differ in type, so each is one run of symbols, `chunk`
+    symbols a chunk, the last run cut at n."""
     used, first_pos = np.unique(assign, return_index=True)
     order = used[np.argsort(first_pos)]
     remap = np.zeros(k, dtype=np.int64)
@@ -319,39 +349,48 @@ def split_symbols(syms: np.ndarray, alphabet_size: int, category: str,
     num_types = len(order)
     if num_types == 1:
         return BlockSplit.trivial(n)
-
     types = np.repeat(assign, chunk)[:n]
-    blocks = _runs(types)
+    blocks = [(t, ln * chunk) for t, ln in _runs(assign)]
+    t, ln = blocks[-1]
+    blocks[-1] = (t, ln - (len(assign) * chunk - n))
     return BlockSplit(num_types, types, blocks)
 
 
 def _hysteresis(assign: np.ndarray, cost: np.ndarray, min_run: int):
-    """Absorb runs shorter than min_run into the cheaper neighbor."""
+    """Absorb runs shorter than min_run into the cheaper neighbor: the
+    one neighbor of a first or last run; else the previous one where
+    its summed cost over the run is at most the next one's.  Up to 4
+    passes, until one changes nothing.
+
+    A pass decides every short run from the runs it starts with, so it
+    is one step over arrays of runs.  A short run's costs are summed
+    in position order from 0.0: with min_run 3 in every category that
+    is one or two terms, a sum no order of addition changes."""
     out = assign.copy()
-    changed = True
-    passes = 0
-    while changed and passes < 4:
-        changed = False
-        passes += 1
-        runs = _runs(out)
-        pos = 0
-        for ri, (t, ln) in enumerate(runs):
-            if ln < min_run and len(runs) > 1:
-                prev_t = runs[ri - 1][0] if ri > 0 else None
-                next_t = runs[ri + 1][0] if ri + 1 < len(runs) else None
-                sl = slice(pos, pos + ln)
-                if prev_t is None:
-                    new_t = next_t
-                elif next_t is None:
-                    new_t = prev_t
-                else:
-                    cp = cost[sl, prev_t].sum()
-                    cn = cost[sl, next_t].sum()
-                    new_t = prev_t if cp <= cn else next_t
-                if new_t != t:
-                    out[sl] = new_t
-                    changed = True
-            pos += ln
+    n = len(out)
+    for _ in range(4):
+        starts = np.concatenate([[0], np.flatnonzero(np.diff(out)) + 1])
+        lens = np.diff(np.append(starts, n))
+        short = np.flatnonzero(lens < min_run)
+        if len(starts) == 1 or len(short) == 0:   # also n == 0
+            break
+        last = len(starts) - 1
+        types = out[starts]
+        prev_t = types[np.maximum(short - 1, 0)]
+        next_t = types[np.minimum(short + 1, last)]
+        s0, ln = starts[short], lens[short]
+        cp = np.zeros(len(short))
+        cn = np.zeros(len(short))
+        for off in range(int(ln.max())):
+            inside = off < ln
+            rows = np.where(inside, s0 + off, 0)
+            cp = cp + np.where(inside, cost[rows, prev_t], 0.0)
+            cn = cn + np.where(inside, cost[rows, next_t], 0.0)
+        new_t = np.where(cp <= cn, prev_t, next_t)
+        new_t[short == 0] = next_t[short == 0]
+        new_t[short == last] = prev_t[short == last]
+        types[short] = new_t
+        out = np.repeat(types, lens)
     return out
 
 

@@ -9,6 +9,10 @@ centroid update.  The products are plain float32 matmuls
 off so they run in full float32.  The run hysteresis and the
 header-cost merge stay on the host (encode/metablock.py).
 
+Traced (utils/trace.py), a call that reaches the Lloyd loop records
+three spans inside its caller's: split.device (the copy in, the Lloyd
+loop and the two copies back), split.hysteresis and split.merge.
+
 The assignment decides output bytes, so the arithmetic follows the JAX
 version step for step: float32 throughout, the same seeds, argmin
 taking the first minimum.
@@ -20,8 +24,9 @@ import numpy as np
 import torch
 
 from ..encode.metablock import (MIN_LENGTH_FOR_SPLITTING, SPLIT_PARAMS,
-                                BlockSplit, _hysteresis, _merge_types,
-                                _runs)
+                                BlockSplit, _chunk_split, _hysteresis,
+                                _merge_types)
+from ..utils import trace
 
 LLOYD_ITERS = 3
 
@@ -103,13 +108,15 @@ def split_symbols_device(syms: np.ndarray, alphabet_size: int,
         [np.asarray(syms, np.int32),
          np.full(pad, -1, np.int32)])
     switch_pen = p["switch_cost"] / max(1, chunk // 16)
-    assign_d, cost_d = _lloyd_device(torch.from_numpy(padded).to(device),
-                                     alphabet_size, k, chunk,
-                                     LLOYD_ITERS, switch_pen)
-    assign = assign_d.cpu().numpy()[:nch].astype(np.int64)
-    cost = cost_d.cpu().numpy()[:nch].astype(np.float64)
+    with trace.span("split.device"):
+        assign_d, cost_d = _lloyd_device(
+            torch.from_numpy(padded).to(device), alphabet_size, k, chunk,
+            LLOYD_ITERS, switch_pen)
+        assign = assign_d.cpu().numpy()[:nch].astype(np.int64)
+        cost = cost_d.cpu().numpy()[:nch].astype(np.float64)
 
-    assign = _hysteresis(assign, cost, p["min_run"])
+    with trace.span("split.hysteresis"):
+        assign = _hysteresis(assign, cost, p["min_run"])
 
     # histograms for the merge (host; [nch, alpha] bincount over the
     # real chunks only)
@@ -119,16 +126,7 @@ def split_symbols_device(syms: np.ndarray, alphabet_size: int,
     flat = chunk_id[valid] * alphabet_size + real[valid].astype(np.int64)
     hist = np.bincount(flat, minlength=nch * alphabet_size) \
         .reshape(nch, alphabet_size).astype(np.float64)
-    assign = _merge_types(assign, hist, k, p["switch_cost"],
-                          p["header_cost"])
-
-    used, first_pos = np.unique(assign, return_index=True)
-    order = used[np.argsort(first_pos)]
-    remap = np.zeros(k, dtype=np.int64)
-    remap[order] = np.arange(len(order))
-    assign = remap[assign]
-    num_types = len(order)
-    if num_types == 1:
-        return BlockSplit.trivial(n)
-    types = np.repeat(assign, chunk)[:n]
-    return BlockSplit(num_types, types, _runs(types))
+    with trace.span("split.merge"):
+        assign = _merge_types(assign, hist, k, p["switch_cost"],
+                              p["header_cost"])
+    return _chunk_split(assign, k, chunk, n)

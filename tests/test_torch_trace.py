@@ -40,6 +40,7 @@ COMPRESS_SPANS = {"compress_gpu", "entry.rows", "entry.call_setup",
                   "host_parse.dict_probe", "host_parse.walk",
                   "host_parse.commands",
                   "store.context", "store.literals", "store.split",
+                  "split.device", "split.hysteresis", "split.merge",
                   "store.metablock", "store.raw"}
 DECODE_SPANS = {"decompress_batch_gpu", "walk.native", "walk.python",
                 "walk.resume", "round.lanes", "round.kernel",
@@ -238,6 +239,24 @@ def test_compress_gpu_host_leg_calls_inside_their_spans(invert,
         ivs = [(t0, t1) for n, _, t0, t1 in stats["spans"] if n == name]
         assert len(ivs) == n_spans
         assert all(any(t0 <= t <= t1 for t0, t1 in ivs) for t in ts), name
+
+
+@pytest.mark.parametrize("max_device", [False, True])
+def test_compress_gpu_split_spans(max_device):
+    """A literal split that reaches the Lloyd loop records split.device,
+    split.hysteresis and split.merge, in that order, inside its
+    store.split; a split that returns before it records none."""
+    stats = _traced_compress(5, max_device=max_device)
+    spans = stats["spans"]
+    kids = {k: [] for k, s in enumerate(spans) if s[0] == "store.split"}
+    for name, parent, _, _ in spans:
+        if name.startswith("split."):
+            kids[parent].append(name)
+    # the random span's 8,192 literals: 32 chunks, 10 types
+    assert ["split.device", "split.hysteresis", "split.merge"] in \
+        list(kids.values())
+    assert all(v in ([], ["split.device", "split.hysteresis",
+                          "split.merge"]) for v in kids.values())
 
 
 def test_compress_gpu_empty_input_traced():
