@@ -53,7 +53,7 @@ from ..core.bitio import BitWriter
 from ..device import resolve_device
 from ..ops.dict_probe_cuda import dict_probe, merge_candidates
 from ..ops.fold_cuda import (best_matches_exact8_p, best_matches_exact9_p,
-                             best_matches_exact_p)
+                             best_matches_exact_p, merge_exact9)
 from ..ops.matching import floor_log2
 from ..ops.parse import committed_parse
 from ..ops.split import split_symbols_device
@@ -68,43 +68,38 @@ LEN_SHIFT = 26  # dist < 2^26 covers lgwin <= 24 (dist < 2^24 + slack)
 _MAX_INFLIGHT = 3
 DICT_COUNTERS = ("dict.positions", "dict.won")
 PARSE_COUNTERS = ("parse.positions", "parse.copied")
+MATCH_COUNTERS = ("match.positions", "match.short_won")
 
 
 def _match_dense(row: torch.Tensor, min_pos: int, window_size: int,
                  halo: int, k: int, k8: int, rounds: int,
-                 variant: str = "exact", device_invert: bool = False):
+                 variant: str = "exact", device_invert: bool = False,
+                 short_won=None):
     """Device matcher over one row.  Sorted-space form (default): the
     tier wrapper's (pos_s, packed_s) -- exact9: both folds' (pos_s,
     packed_s, score_s) -- for the host to invert.  device_invert=True
     inverts on the device and returns the span's packed
-    (len << 26 | dist) alone."""
-    if device_invert:
-        if variant == "exact8":
-            packed = best_matches_exact8_p(
-                row, window_size, k=k, rounds=rounds, min_pos=min_pos,
-                len_shift=LEN_SHIFT)
-        elif variant == "exact9":
-            packed = best_matches_exact9_p(
-                row, window_size, k=k, k_short=max(k8, 8),
-                rounds=rounds, min_pos=min_pos, len_shift=LEN_SHIFT)
-        else:
-            packed = best_matches_exact_p(
-                row, window_size, k=k, rounds=rounds, min_pos=min_pos,
-                len_shift=LEN_SHIFT)
-        return (packed[halo:],)
-    if variant == "exact8":
-        pos_s, packed_s, _ = best_matches_exact8_p(
-            row, window_size, k=k, rounds=rounds, min_pos=min_pos,
-            len_shift=LEN_SHIFT, invert=False)
-        return pos_s, packed_s
+    (len << 26 | dist) alone.  short_won=(lo, hi), exact9 only: one
+    more output, last, a one-element count of the row positions in
+    [lo, hi) whose merged match comes from the short fold (its score
+    strictly beats the exact8 fold's, the merge's rule)."""
+    kw = dict(k=k, rounds=rounds, min_pos=min_pos, len_shift=LEN_SHIFT)
     if variant == "exact9":
-        return best_matches_exact9_p(row, window_size, k=k,
-                                     k_short=max(k8, 8), rounds=rounds,
-                                     min_pos=min_pos, len_shift=LEN_SHIFT,
-                                     invert=False)
-    return best_matches_exact_p(row, window_size, k=k, rounds=rounds,
-                                min_pos=min_pos, len_shift=LEN_SHIFT,
-                                invert=False)
+        out = best_matches_exact9_p(row, window_size, k_short=max(k8, 8),
+                                    invert=False, **kw)
+        if device_invert or short_won is not None:
+            packed, won = merge_exact9(out)
+            if device_invert:
+                out = (packed[halo:],)
+            if short_won is not None:
+                lo, hi = short_won
+                out = (*out, won[lo:hi].sum().reshape(1))
+        return out
+    fn = best_matches_exact8_p if variant == "exact8" else \
+        best_matches_exact_p
+    if device_invert:
+        return (fn(row, window_size, **kw)[halo:],)
+    return fn(row, window_size, invert=False, **kw)[:2]
 
 
 def _pick_device_invert(dev: torch.device) -> bool:
@@ -384,9 +379,14 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                        window's match
       parse.positions  max_device: the positions the device's parse
                        committed over
-      parse.copied     those its copies cover"""
+      parse.copied     those its copies cover
+      match.positions  q9 (the exact9 matcher, two folds merged): the
+                       positions its merge took
+      match.short_won  those whose merged match came from the short
+                       fold (its score strictly beat the exact8 fold's),
+                       counted on the device"""
     with trace.recording("compress_gpu", stats,
-                         DICT_COUNTERS + PARSE_COUNTERS,
+                         DICT_COUNTERS + PARSE_COUNTERS + MATCH_COUNTERS,
                          sums={"device_wait_s": "pipe.wait"}):
         dev = resolve_device(device)
         raw = np.frombuffer(bytes(data), dtype=np.uint8)
@@ -435,19 +435,28 @@ def compress_gpu(data, quality: int = 9, lgwin: int = 22, mode: int = 0,
                 # on the device
                 device_invert = (_pick_device_invert(dev) if nb.available()
                                  else True)
+                # traced q9: the device also counts the short fold's wins
+                count_won = knobs["variant"] == "exact9" and trace.on()
 
                 def device_step(j, row_d):
                     out = _match_dense(row_d, int(min_pos[j]),
                                        params.window_size, halo,
-                                       device_invert=device_invert, **knobs)
+                                       device_invert=device_invert,
+                                       short_won=(halo, halo + reals[j])
+                                       if count_won else None, **knobs)
                     return (*out, dict_probe(row_d, halo, reals[j],
                                              int(min_pos[j]),
                                              params.window_size))
 
                 def host_step(j, outs, dlen, region, cache):
                     # content-sorted space (pos_s, packed_s[, score_s] per
-                    # fold) unless inverted on the device, then the
-                    # dictionary candidates
+                    # fold) unless inverted on the device[, the count of
+                    # the short fold's wins], then the dictionary
+                    # candidates
+                    if count_won:
+                        trace.count("match.positions", reals[j])
+                        trace.count("match.short_won", int(outs[-2][0]))
+                        outs = (*outs[:-2], outs[-1])
                     return _host_parse(outs[:-1], outs[-1], rows[j], halo,
                                        reals[j], dlen, region, knobs,
                                        params.window_size, cache)[0]

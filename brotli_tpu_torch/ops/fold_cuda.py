@@ -394,20 +394,24 @@ def best_matches_exact9_p(data: torch.Tensor, window_size: int,
     4-byte-recency short fold (key v0, one payload, lengths capped at
     8; the host extends len == 8 winners).  invert=False returns both
     folds' sorted-space (pos_s, packed_s, score_s), exact8's first."""
-    if not invert:
-        return (*best_matches_exact8_p(
-            data, window_size, k=k, rounds=rounds,
-            literal_byte_score=literal_byte_score, min_pos=min_pos,
-            len_shift=len_shift, invert=False),
-            *_short_fold(data, window_size, k_short, literal_byte_score,
-                         min_pos, len_shift))
-    p8, s8 = best_matches_exact8_p(
+    out = (*best_matches_exact8_p(
         data, window_size, k=k, rounds=rounds,
         literal_byte_score=literal_byte_score, min_pos=min_pos,
-        len_shift=len_shift, invert=True, _with_score=True)
-    ps, ss = _invert(*_short_fold(data, window_size, k_short,
-                                  literal_byte_score, min_pos, len_shift))
-    return torch.where(ss > s8, ps, p8)
+        len_shift=len_shift, invert=False),
+        *_short_fold(data, window_size, k_short, literal_byte_score,
+                     min_pos, len_shift))
+    return merge_exact9(out)[0] if invert else out
+
+
+def merge_exact9(sorted_out):
+    """best_matches_exact9_p's sorted-space outputs to position space,
+    merged as the host's invert_merge32 merges them: the short fold's
+    match where its score strictly beats the exact8 fold's.  Returns
+    (packed, short_won), short_won the mask of those positions."""
+    p8, s8 = _invert(*sorted_out[:3])
+    ps, ss = _invert(*sorted_out[3:])
+    short_won = ss > s8
+    return torch.where(short_won, ps, p8), short_won
 
 
 def best_matches_exact9_fused(data: torch.Tensor, window_size: int,

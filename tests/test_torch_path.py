@@ -50,7 +50,8 @@ def test_compress_gpu_cpu_matches_compress_tpu(quality):
     if oracle.available():
         assert oracle.decompress(got) == DATA
     assert set(stats) == {"wall_s", "device_wait_s", "spans",
-                          *G.DICT_COUNTERS, *G.PARSE_COUNTERS}
+                          *G.DICT_COUNTERS, *G.PARSE_COUNTERS,
+                          *G.MATCH_COUNTERS}
     assert 0.0 <= stats["device_wait_s"] <= stats["wall_s"]
     assert [s[0] for s in stats["spans"]].count("host_parse") == 4
 

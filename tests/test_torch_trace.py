@@ -15,6 +15,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from . import oracle
 from brotli_tpu.encode.tpu_path import compress_tpu
@@ -23,6 +24,7 @@ from brotli_tpu_torch import native_bridge as nb
 from brotli_tpu_torch.decode import batch_gpu as B
 from brotli_tpu_torch.encode import fast as TF
 from brotli_tpu_torch.encode import gpu_path as G
+from brotli_tpu_torch.encode.params import EncoderParams
 from brotli_tpu_torch.utils import trace
 from .test_torch_encoder import dictionary_slice, phrases
 from .torch_threads import one_torch_thread  # noqa: F401
@@ -289,7 +291,64 @@ def test_compress_gpu_no_runtime_spans(monkeypatch):
 def test_compress_gpu_stats_keys():
     stats = _traced_compress(4)
     assert set(stats) == {"wall_s", "device_wait_s", "spans",
-                          *G.DICT_COUNTERS, *G.PARSE_COUNTERS}
+                          *G.DICT_COUNTERS, *G.PARSE_COUNTERS,
+                          *G.MATCH_COUNTERS}
+
+
+def _short_won_by_span(quality):
+    """The positions of each span of DATA whose q9 merge takes the short
+    fold's match (its score strictly above the exact8 fold's), from the
+    two folds' sorted-space outputs inverted on the host."""
+    params = EncoderParams(quality=quality).sanitize(len(DATA))
+    halo = -(-(params.window_size + 16) // 4096) * 4096
+    knobs = G._device_knobs(params.quality)
+    rows, min_pos = G._halo_rows(np.frombuffer(DATA, np.uint8), SPAN, halo)
+    won = []
+    for j, row in enumerate(rows):
+        pos8, _, sc8, pos_s, _, sc_s = [x.numpy() for x in G._match_dense(
+            torch.from_numpy(row), int(min_pos[j]), params.window_size,
+            halo, **knobs)]
+        a, b = np.empty_like(sc8), np.empty_like(sc_s)
+        a[pos8], b[pos_s] = sc8, sc_s
+        real = min(SPAN, len(DATA) - j * SPAN)
+        won.append(int((b > a)[halo:halo + real].sum()))
+    return won
+
+
+@pytest.mark.parametrize("invert", ["0", "1"])
+@pytest.mark.parametrize("quality", [5, 7, 9])
+def test_compress_gpu_match_counters(quality, invert, monkeypatch):
+    """q9 counts every position its merge takes and those the short
+    fold wins, exactly, on either inversion route; q5 and q7, which
+    merge nothing, count none."""
+    monkeypatch.setenv("BROTLI_TPU_TORCH_DEVICE_INVERT", invert)
+    stats = _traced_compress(quality)
+    if quality < 9:
+        assert [stats[k] for k in G.MATCH_COUNTERS] == [0, 0]
+        return
+    assert stats["match.positions"] == len(DATA)
+    assert stats["match.short_won"] == sum(_short_won_by_span(quality)) > 0
+
+
+@pytest.mark.parametrize("invert", ["0", "1"])
+def test_compress_gpu_match_count_only_traced(invert, monkeypatch):
+    """The device counts the short fold's wins only in a traced q9
+    call, once a span: an untraced call asks the matcher for no count."""
+    monkeypatch.setenv("BROTLI_TPU_TORCH_DEVICE_INVERT", invert)
+    asked = []
+    match = G._match_dense
+
+    def spy(*a, **kw):
+        asked.append(kw.get("short_won"))
+        return match(*a, **kw)
+
+    monkeypatch.setattr(G, "_match_dense", spy)
+    n_spans = -(-len(DATA) // SPAN)
+    compress_gpu(DATA, quality=9, span=SPAN, device="cpu")
+    assert asked == [None] * n_spans
+    asked.clear()
+    compress_gpu(DATA, quality=9, span=SPAN, stats={}, device="cpu")
+    assert len(asked) == n_spans and None not in asked
 
 
 @pytest.mark.parametrize("quality,max_device", [
